@@ -17,18 +17,25 @@ package.  Phases, each printing one JSON line:
    sums in another order), d bit-exact.  Median times of the kernel, the
    plain version and a library yardstick (cuDNN depthwise + torch.matmul,
    timed here only), with the card's bound for the same work.
-4. slice   — the full-width DeepLabv3+ (bf16, fp32 parameters) trained with
+4. units   — one full-resolution training step in which every one of the
+   60 fused units holds its kernels' outputs to the plain version on the
+   same inputs, with the tolerances of phase 3: all unit shapes of the
+   main path, forward and backward.
+5. slice   — the full-width DeepLabv3+ (bf16, fp32 parameters) trained with
    AdamW on a synthetic (4, 768, 1152, 16) batch through ``make_train_step``:
    1 warm-up and 3 timed steps.  The launch counters are zeroed just before
    and read just after: each kernel must run exactly 60 times per step.
-5. parity  — the same weights on the card (bf16, kernels) and on the CPU
-   (fp32, plain versions) at (2, 64, 96, 16): eval-mode logits within 5e-2
-   of the largest CPU logit and the loss within 5e-2 relative (bf16 through
-   ~80 layers; the port's CPU bf16 run differs from its fp32 run by 2e-2).
-   Train mode is not compared this way: at this size the GAP branch's BN
-   normalizes over two values, which maps bf16-sized differences to
-   order-one changes (0.52 of the largest logit between the CPU bf16 and
-   fp32 runs alone).
+6. block   — one middle-flow Xception block in train mode (three fused
+   units, BN batch statistics, identity residual) at (2, 48, 72, 728) and
+   one AdamW step, on the card (bf16, kernels) and on the CPU (bf16, plain
+   versions), from the same weights and input: output, dx, every gradient,
+   the running statistics and the updated parameters (BLOCK_TOL).
+7. parity  — the whole model in eval mode with random running statistics
+   at (2, 64, 96, 16), the same weights on the card (bf16, kernels) and on
+   the CPU: against the CPU's bf16 run (plain versions) the logits, the
+   weighted-CE loss and the gradient of every parameter (PARITY_TOL);
+   against its fp32 run the logits and loss (FP32_TOL).  A coarse gate:
+   through ~80 layers bf16 rounding alone moves the gradients by ~15%.
 
 Then the ``kernels`` JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script then
@@ -60,6 +67,26 @@ HEADLINE = "middle_728x728_48x72"  # 48 of the 60 units run at this shape
 STEP_BATCH = 4
 WARMUP_STEPS, TIMED_STEPS = 1, 3
 UNITS_PER_STEP = 60
+# Card (bf16, kernels) against CPU (bf16, plain versions): the same rounding
+# points, fp32 sums in other orders.  Block phase, (max, norm) errors
+# relative to the CPU tensor; measured on an H100 (chip_smoke.py): y 7.8e-3,
+# 2.0e-3; dx 2.9e-2, 5.5e-3; gradients 2.8e-2, 6.7e-3; running statistics
+# 6.4e-4; parameters after AdamW on the same gradients 2.3e-7.  The phase
+# also prints how far bf16 alone moves dx and the gradients (the CPU's bf16
+# run against its fp32 run), which the norm tolerances must stay well
+# below to tell a wrong kernel from rounding.
+BLOCK_TOL = {"y": (2e-2, 1e-2), "dx": (1e-1, 2e-2), "grad": (1e-1, 2e-2),
+             "stat": (5e-3, 5e-3), "param": (1e-6, 1e-6)}
+# Whole model, eval mode.  Through ~80 layers a one-ulp difference spreads
+# as far as bf16 rounding itself: measured on an H100, the card's gradients
+# differ from the CPU's bf16 run by 0.13 (norm, median leaf; worst 0.24),
+# as the CPU's bf16 run differs from its fp32 run (0.15).  So this phase
+# only catches a gross fault (a wrong backward gives ~1 on every leaf
+# upstream of it); the units and block phases hold the kernels closely.
+PARITY_TOL = {"logits": 0.1, "loss": 1e-2, "grad_norm_median": 0.3, "grad_norm_max": 0.6}
+# against the CPU's fp32 run: bf16 alone moves the logits by 2.8e-2 of the
+# largest (CPU) and the card's by 3.6e-2 (H100)
+FP32_TOL = {"logits": 0.1, "loss": 1e-2}
 
 
 def emit(obj):
@@ -173,6 +200,145 @@ def kernel_phase(fs):
     return rows
 
 
+def rel_err(a, b):
+    """max |a − b| over max |b|, in fp32 on a's device."""
+    a, b = a.detach().float(), b.detach().float().to(a.device)
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+
+def norm_err(a, b):
+    """‖a − b‖ over ‖b‖, in fp32 on a's device."""
+    a, b = a.detach().float(), b.detach().float().to(a.device)
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def checked_unit_step(fs, step_fn, state, x, y):
+    """One training step in which each fused unit's kernel outputs are held
+    to the plain version on the same inputs (the tolerances of phase 3).
+    Returns the worst relative error of each output over the step's units
+    and the unit configurations seen."""
+    real_fwd, real_bwd = fs.sepconv_fwd, fs.sepconv_bwd
+    worst = {"y": 0.0, "dx": 0.0, "d_dw": 0.0, "d_pw": 0.0}
+    units = {"fwd": [], "bwd": []}
+
+    def hold(outs, refs, names, tols, unit):
+        for out, a, b, tol in zip(names, outs, refs, tols):
+            err = rel_err(a, b)
+            check(math.isfinite(err) and err <= tol, f"unit {unit} {out}: {err} > {tol}")
+            worst[out] = max(worst[out], err)
+
+    def fwd(x, dwk, pwk, pre_relu, dil, emit_d):
+        y, d = real_fwd(x, dwk, pwk, pre_relu, dil, emit_d)
+        y_ref, d_ref = fs.sepconv_fwd_plain(x, dwk, pwk, pre_relu, dil)
+        unit = (*x.shape, pwk.shape[1], pre_relu, dil)
+        check(d is None or torch.equal(d, d_ref), f"unit {unit}: kernel d differs")
+        hold((y,), (y_ref,), ("y",), (2e-2,), unit)
+        units["fwd"].append(unit)
+        return y, d
+
+    def bwd(x, g, dwk, pwk, d, pre_relu, dil):
+        got = real_bwd(x, g, dwk, pwk, d, pre_relu, dil)
+        unit = (*x.shape, pwk.shape[1], pre_relu, dil)
+        hold(got, fs.sepconv_bwd_plain(x, g, dwk, pwk, d, pre_relu, dil),
+             ("dx", "d_dw", "d_pw"), (2e-2, 1e-3, 1e-3), unit)
+        units["bwd"].append(unit)
+        return got
+
+    fs.sepconv_fwd, fs.sepconv_bwd = fwd, bwd
+    try:
+        state, metrics = step_fn(state, x, y)
+        torch.cuda.synchronize()
+    finally:
+        fs.sepconv_fwd, fs.sepconv_bwd = real_fwd, real_bwd
+    check(len(units["fwd"]) == len(units["bwd"]) == UNITS_PER_STEP,
+          f"{len(units['fwd'])} forward and {len(units['bwd'])} backward units in one step")
+    return state, metrics, worst, units
+
+
+def block_parity(XceptionBlock, build_optimizer):
+    """One middle-flow block in train mode on the card (bf16, kernels) and
+    on the CPU (bf16 and fp32, plain versions), from the same weights and
+    input; then one AdamW step on each, all from the card's gradients.
+    Returns {tensor: (max error, norm error)} of the card relative to the
+    CPU's bf16 run, and the norm error of the CPU's bf16 run relative to
+    its fp32 run for dx and the worst gradient (what bf16 alone moves)."""
+    n, h, w, c = 2, 48, 72, 728
+    gen = torch.Generator().manual_seed(21)
+    x = torch.randn(n, c, h, w, generator=gen) + 0.3
+    ct = torch.randn(n, c, h, w, generator=gen)
+    runs, card_grads = {}, None
+    for key, dev, dtype in (("card", "cuda", torch.bfloat16), ("cpu16", "cpu", torch.bfloat16),
+                            ("cpu32", "cpu", torch.float32)):
+        block = XceptionBlock(c, c, 3, dtype=dtype,
+                              gen=torch.Generator().manual_seed(22)).to(dev).train()
+        opt = build_optimizer("AdamW", block.parameters(), 1e-3, eps=1e-8, weight_decay=1e-2)
+        xd = x.to(dev, dtype).contiguous(memory_format=torch.channels_last)
+        xd.requires_grad_()
+        out = block(xd)
+        (out.float() * ct.to(dev)).sum().backward()
+        res = {"y": out.detach().cpu(), "dx": xd.grad.cpu()}
+        res.update({f"grad/{k}": p.grad.cpu() for k, p in block.named_parameters()})
+        res.update({f"stat/{k}": b.cpu() for k, b in block.named_buffers()})
+        if card_grads is None:
+            card_grads = {k: p.grad.cpu() for k, p in block.named_parameters()}
+        else:  # the optimizer alone: the CPU steps on the card's gradients
+            for k, p in block.named_parameters():
+                p.grad = card_grads[k].clone()
+        opt.step()
+        res.update({f"param/{k}": p.detach().cpu() for k, p in block.named_parameters()})
+        runs[key] = res
+    card, cpu16, cpu32 = runs["card"], runs["cpu16"], runs["cpu32"]
+    errs = {k: (rel_err(card[k], v), norm_err(card[k], v)) for k, v in cpu16.items()}
+    bf16_vs_fp32 = {"dx": norm_err(cpu16["dx"], cpu32["dx"]),
+                    "grad": max(norm_err(cpu16[k], v) for k, v in cpu32.items()
+                                if k.startswith("grad/"))}
+    return errs, bf16_vs_fp32
+
+
+def random_running_stats(model, seed):
+    """Running statistics from a seeded CPU generator (means in ±0.25,
+    variances in [0.75, 1.25]), so each eval-mode BN is a non-trivial
+    affine map."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, buf in model.named_buffers():
+            u = torch.rand(buf.shape, generator=gen).to(buf.device)
+            buf.copy_(0.5 * u + (0.75 if name.endswith("running_var") else -0.25))
+
+
+def model_parity(DeepLabv3plus, weighted_ce_loss, class_weights):
+    """The whole model in eval mode at (2, 64, 96, 16) on the card (bf16)
+    and on the CPU (bf16 and fp32): logits, loss and every parameter's
+    gradient of the loss."""
+    xs = torch.rand(2, 64, 96, 16, generator=torch.Generator().manual_seed(5))
+    ys = torch.randint(0, 3, (2, 64, 96), generator=torch.Generator().manual_seed(6))
+    runs = {}
+    for key, dev, dtype in (("card", "cuda", torch.bfloat16), ("cpu16", "cpu", torch.bfloat16),
+                            ("cpu32", "cpu", torch.float32)):
+        m = DeepLabv3plus(n_classes=3, dtype=dtype, device=dev, seed=7).eval()
+        random_running_stats(m, 8)
+        logits = m(xs.to(dev))
+        loss = weighted_ce_loss(logits, ys.to(dev), class_weights())
+        loss.backward()
+        runs[key] = {"logits": logits.detach().float().cpu(), "loss": loss.item(),
+                     "grads": {k: p.grad.cpu() for k, p in m.named_parameters()}}
+    card, cpu16, cpu32 = runs["card"], runs["cpu16"], runs["cpu32"]
+    check(card["logits"].shape == (2, 64, 96, 3) and bool(torch.isfinite(card["logits"]).all()),
+          "bad logits")
+    grad_norm = sorted(norm_err(card["grads"][k], g) for k, g in cpu16["grads"].items())
+    grad32 = sorted(norm_err(cpu16["grads"][k], g) for k, g in cpu32["grads"].items())
+    return {
+        "bf16": {"logits": rel_err(card["logits"], cpu16["logits"]),
+                 "loss": abs(card["loss"] - cpu16["loss"]) / abs(cpu16["loss"]),
+                 "grad_norm_median": grad_norm[len(grad_norm) // 2],
+                 "grad_norm_max": grad_norm[-1], "n_grads": len(grad_norm)},
+        "cpu_bf16_vs_fp32_grad_norm_median": grad32[len(grad32) // 2],
+        "fp32": {"logits": rel_err(card["logits"], cpu32["logits"]),
+                 "loss": abs(card["loss"] - cpu32["loss"]) / abs(cpu32["loss"])},
+        "loss_card": card["loss"],
+    }
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one card",
@@ -180,6 +346,7 @@ def main():
         return 2
     try:
         from deepcam_tpu_torch.models.deeplab import DeepLabv3plus
+        from deepcam_tpu_torch.models.xception import XceptionBlock
         from deepcam_tpu_torch.ops import build
         from deepcam_tpu_torch.ops import fused_sepconv as fs
         from deepcam_tpu_torch.train.losses import (
@@ -208,7 +375,7 @@ def main():
     # 3. kernels against their plain versions
     rows = kernel_phase(fs)
 
-    # 4. the slice: full-width training steps through the kernels
+    # 4. every fused unit of one full-resolution step against the plain version
     batch = STEP_BATCH
     model = DeepLabv3plus(n_classes=3, dtype=torch.bfloat16, device="cuda", seed=333)
     opt = build_optimizer("AdamW", model.parameters(), 1e-3, eps=1e-8, weight_decay=1e-2)
@@ -217,6 +384,13 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = torch.rand(batch, 768, 1152, 16, generator=gen, device="cuda").bfloat16()
     y = torch.randint(0, 3, (batch, 768, 1152), generator=gen, device="cuda")
+    state, metrics, worst, units = checked_unit_step(fs, step_fn, state, x, y)
+    emit({"phase": "units", "input": [batch, 768, 1152, 16], "units": len(units["fwd"]),
+          "distinct_unit_shapes": len(set(units["fwd"])), "worst_rel_to_max": worst,
+          "tolerance": {"y": 2e-2, "dx": 2e-2, "d_dw": 1e-3, "d_pw": 1e-3},
+          "loss": float(metrics["loss"])})
+
+    # 5. the slice: full-width training steps through the kernels
     watched = {k: p.detach().clone() for k, p in model.named_parameters()
                if k.endswith(("block4.sepconv1.depthwise.weight", "block4.sepconv1.pointwise.weight",
                               "conv5.pointwise.weight", "last_deconv.weight"))}
@@ -254,25 +428,21 @@ def main():
     del model, opt, state, step_fn, x, y, watched
     torch.cuda.empty_cache()
 
-    # 5. parity: the card (bf16, kernels) against the CPU (fp32, plain)
-    xs = torch.rand(2, 64, 96, 16, generator=torch.Generator().manual_seed(5))
-    ys = torch.randint(0, 3, (2, 64, 96), generator=torch.Generator().manual_seed(6))
-    out = {}
-    for dev, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
-        m = DeepLabv3plus(n_classes=3, dtype=dtype, device=dev, seed=7).eval()
-        with torch.no_grad():
-            logits = m(xs.to(dev))
-            loss = weighted_ce_loss(logits, ys.to(dev), class_weights())
-        out[dev] = (logits.float().cpu(), float(loss))
-    (lg, lossg), (lc, lossc) = out["cuda"], out["cpu"]
-    check(lg.shape == (2, 64, 96, 3) and bool(torch.isfinite(lg).all()), "bad logits")
-    logit_err = (lg - lc).abs().max().item() / lc.abs().max().item()
-    loss_err = abs(lossg - lossc) / abs(lossc)
-    emit({"phase": "parity", "input": [2, 64, 96, 16], "logits_rel_to_max": logit_err,
-          "loss_card": lossg, "loss_cpu": lossc, "loss_rel": loss_err,
-          "mode": "eval", "tolerance": {"logits_rel_to_max": 0.05, "loss_rel": 0.05}})
-    check(logit_err <= 0.05 and loss_err <= 0.05,
-          f"card vs CPU: logits {logit_err}, loss {loss_err}")
+    # 6. one train-mode block and an AdamW step: card (bf16) against CPU (bf16)
+    errs, bf16_vs_fp32 = block_parity(XceptionBlock, build_optimizer)
+    emit({"phase": "block", "input": [2, 48, 72, 728], "errors_max_norm": errs,
+          "tolerance": BLOCK_TOL, "cpu_bf16_vs_fp32_norm": bf16_vs_fp32})
+    for k, (emax, enorm) in errs.items():
+        tmax, tnorm = BLOCK_TOL[k.split("/")[0]]
+        check(emax <= tmax and enorm <= tnorm, f"block {k}: {emax}, {enorm} > {tmax}, {tnorm}")
+
+    # 7. the whole model, eval mode: card against the CPU's bf16 and fp32 runs
+    par = model_parity(DeepLabv3plus, weighted_ce_loss, class_weights)
+    emit({"phase": "parity", "input": [2, 64, 96, 16], "mode": "eval", **par,
+          "tolerance": {"bf16": PARITY_TOL, "fp32": FP32_TOL}})
+    for ref, tols in (("bf16", PARITY_TOL), ("fp32", FP32_TOL)):
+        for k, tol in tols.items():
+            check(par[ref][k] <= tol, f"card vs CPU {ref}: {k} {par[ref][k]} > {tol}")
 
     kernels = []
     for kname, fname, line in (("sepconv_fwd", "sepconv_fwd.cu", 343),

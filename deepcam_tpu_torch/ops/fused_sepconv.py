@@ -27,6 +27,7 @@ y (N, H, W, F).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -161,19 +162,25 @@ def sepconv_fwd(x, dwk, pwk, pre_relu: bool, dilation: int, emit_d: bool):
 
 
 # blocks per SM the backward aims for when it splits a reduction
-_SPLIT_TARGET = 4 * 132
+_BLOCKS_PER_SM = 4
 _PARTIAL_CAP = 64 << 20
 
 
-def bwd_plan(p: int, c: int, f: int):
-    """Work split of the backward for p pixels, C→F: (pixels per dx/d_dw
-    block, d_pw slices, pixels per slice).  Keeps the d_pw partials under
-    64 MB and gives the card about four blocks per SM where the shape
-    allows it."""
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def bwd_plan(p: int, c: int, f: int, sms: int):
+    """Work split of the backward for p pixels, C→F on a card with ``sms``
+    SMs: (pixels per dx/d_dw block, d_pw slices, pixels per slice).  Keeps
+    the d_pw partials under 64 MB and gives the card about four blocks per
+    SM where the shape allows it."""
+    target = _BLOCKS_PER_SM * sms
     ctiles = -(-c // 64)
-    ppb = max(256, -(-p * ctiles // _SPLIT_TARGET) // 32 * 32)
+    ppb = max(256, -(-p * ctiles // target) // 32 * 32)
     tiles = ctiles * -(-f // 128)
-    splits = max(1, min(-(-_SPLIT_TARGET // tiles), -(-p // 32),
+    splits = max(1, min(-(-target // tiles), -(-p // 32),
                         _PARTIAL_CAP // (c * f * 4)))
     chunk = -(-p // splits // 32) * 32
     splits = -(-p // chunk)
@@ -187,7 +194,7 @@ def sepconv_bwd(x, g, dwk, pwk, d, pre_relu: bool, dilation: int):
     _check("g", g, (n, h, w, f))
     _check("d", d, (n, h, w, c))
     p = n * h * w
-    ppb, splits, chunk = bwd_plan(p, c, f)
+    ppb, splits, chunk = bwd_plan(p, c, f, _sm_count(x.device.index))
     nblk = -(-p // ppb)
     dev = x.device
     dx = torch.empty_like(x)

@@ -95,7 +95,9 @@ def load_jax_variables(model: torch.nn.Module, params, batch_stats) -> None:
 def state_dict_to_jax(model: torch.nn.Module, tensors: Mapping[str, torch.Tensor]):
     """The inverse layout map: (params, batch_stats) nested dicts of numpy
     fp32 arrays from port tensors keyed like the state_dict (for example the
-    parameters' gradients).  Keys absent from ``tensors`` are skipped."""
+    parameters' gradients).  Keys absent from ``tensors`` are skipped.  The
+    arrays are copies: later in-place updates of the tensors (the BN running
+    statistics of a train step) do not reach them."""
     params, stats = {}, {}
     for key, coll, path, perm in assignments(model):
         if key not in tensors:
@@ -103,5 +105,5 @@ def state_dict_to_jax(model: torch.nn.Module, tensors: Mapping[str, torch.Tensor
         a = tensors[key].detach().float().cpu().numpy()
         if perm is not None:
             a = np.transpose(a, np.argsort(perm))
-        _set(params if coll == "params" else stats, path, np.ascontiguousarray(a))
+        _set(params if coll == "params" else stats, path, np.array(a, order="C"))
     return params, stats

@@ -47,8 +47,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     (4 * 48 * 72, 1536, 2048),
     (2 * 4 * 6, 1024, 1536),
 ])
-def test_bwd_plan_bounds_partials(p, c, f):
-    ppb, splits, chunk = fs.bwd_plan(p, c, f)
+@pytest.mark.parametrize("sms", [132, 114])  # H100 SXM, H100 PCIe
+def test_bwd_plan_bounds_partials(p, c, f, sms):
+    ppb, splits, chunk = fs.bwd_plan(p, c, f, sms)
     assert ppb >= 256 and ppb % 32 == 0
     assert chunk % 32 == 0 and splits * chunk >= p > (splits - 1) * chunk
     assert splits * c * f * 4 <= 64 << 20

@@ -168,6 +168,55 @@ def test_conv_transpose_matches_jax():
            gp_j["kernel"], 1e-4, "d kernel")
 
 
+@pytest.mark.parametrize("in_ch,out_ch,kw", [
+    (16, 32, dict(reps=2, stride=2, start_with_relu=False)),      # entry: block1
+    (32, 32, dict(reps=3)),                                        # middle: identity skip
+    (32, 48, dict(reps=2, grow_first=False, is_last=True)),        # exit: block20
+    (24, 24, dict(reps=3, dilation=2)),
+])
+def test_xception_block_train_matches_jax(in_ch, out_ch, kw):
+    """One residual block in train mode: the BN batch-statistics backward,
+    composed with the fused units, the tail sepconv and the skip.  A single
+    block on (2, 16, 24) has 192-768 values per BN channel and is
+    well-conditioned, so the gradients of every parameter and of the input
+    are held to fp32 noise (1e-4 of each leaf's largest entry), unlike the
+    whole model's train-mode gradients (``test_torch_model.py``)."""
+    from deepcam_tpu.models.xception import XceptionBlock as JaxBlock
+    from deepcam_tpu_torch.models.xception import XceptionBlock
+    from deepcam_tpu_torch.tools.weights import load_jax_variables, state_dict_to_jax
+    from tests.torch_port_ref import assert_trees_close
+
+    rng = np.random.RandomState(4)
+    x = (rng.randn(2, 16, 24, in_ch) + 0.3).astype(np.float32)
+    jblock = JaxBlock(out_ch=out_ch, dtype=jnp.float32, **kw)
+    with jax_base_config():
+        variables = jblock.init(jax.random.PRNGKey(5), x, train=False)
+        stats = jax.tree_util.tree_map(
+            lambda a: jnp.asarray(rng.rand(*a.shape).astype(np.float32) + 0.5),
+            variables["batch_stats"])
+        ct = rng.randn(*jblock.apply(variables, x, train=False).shape).astype(np.float32)
+
+        def f(params, x):
+            y, upd = jblock.apply({"params": params, "batch_stats": stats}, x, train=True,
+                                  mutable=["batch_stats"])
+            return jnp.sum(y * ct), (y, upd["batch_stats"])
+
+        (gp, gx), (y_j, stats_j) = jax.grad(f, argnums=(0, 1), has_aux=True)(
+            variables["params"], x)
+
+    block = XceptionBlock(in_ch, out_ch, gen=torch.Generator().manual_seed(0), **kw)
+    load_jax_variables(block, variables["params"], stats)
+    xt = _nchw(x)
+    y = block.train()(xt)
+    (y * _nchw(ct).detach()).sum().backward()
+    _close(_nhwc(y), y_j, 1e-5, "y")
+    _, port_stats = state_dict_to_jax(block, block.state_dict())
+    assert_trees_close(port_stats, stats_j, 1e-5, "batch_stats")
+    grads, _ = state_dict_to_jax(block, {k: p.grad for k, p in block.named_parameters()})
+    assert_trees_close(grads, gp, 1e-4, "param grads")
+    assert_trees_close({"x": _nhwc(xt.grad)}, {"x": gx}, 1e-4, "dx")
+
+
 @pytest.mark.parametrize("rate", [1, 2, 3, 6])
 def test_fixed_padding_matches_jax(rate):
     assert tl.fixed_padding(3, rate) == jl.fixed_padding(3, rate)

@@ -85,9 +85,10 @@ def test_only_adamw_is_ported():
 
 
 def _two_steps():
-    """Two AdamW train steps from the same weights on the port, on JAX, and
-    on JAX again with every input nudged by 1e-7 (relative): the last run
-    measures how far JAX moves from itself under fp32-sized perturbations."""
+    """Two AdamW train steps from the same weights on JAX, on the port, and
+    on the port again with every input nudged by 1e-7 (relative): the last
+    run measures how far the port moves from itself under fp32-sized
+    perturbations."""
     from deepcam_tpu.core import mesh as meshlib
     from deepcam_tpu.models.deeplab import DeepLabv3plus as JaxDeepLab
     from deepcam_tpu.train.optim import build_optimizer as jax_build_optimizer
@@ -109,31 +110,29 @@ def _two_steps():
         mesh = meshlib.make_mesh(devices=jax.devices()[:1])
         tx = jax_build_optimizer("AdamW", LR, eps=EPS, weight_decay=WD)
         step = jax_make_step(jm, tx, weights, mesh, fpw_1=jl.FPW_1, fpw_2=jl.FPW_2)
+        state = jax.device_put(jax_create_state(jm, variables, tx), meshlib.replicated(mesh))
+        ref_m = []
+        for x, y in batches:
+            state, m = step(state, jnp.asarray(x), jnp.asarray(y))
+            ref_m.append({k: float(v) for k, v in m.items()})
+        ref = (ref_m, jax.tree_util.tree_map(np.asarray, state.params),
+               jax.tree_util.tree_map(np.asarray, state.batch_stats))
 
-        def run_jax(data):
-            state = jax.device_put(jax_create_state(jm, variables, tx),
-                                   meshlib.replicated(mesh))
-            metrics = []
-            for x, y in data:
-                state, m = step(state, jnp.asarray(x), jnp.asarray(y))
-                metrics.append({k: float(v) for k, v in m.items()})
-            return (metrics, jax.tree_util.tree_map(np.asarray, state.params),
-                    jax.tree_util.tree_map(np.asarray, state.batch_stats))
+    def run_port(data):
+        model = DeepLabv3plus(3, dtype=torch.float32, device="cpu")
+        load_jax_variables(model, variables["params"], variables["batch_stats"])
+        opt = build_optimizer("AdamW", model.parameters(), LR, eps=EPS, weight_decay=WD)
+        pstate = create_train_state(model, opt)
+        pstep = make_train_step(tl.class_weights(), fpw_1=tl.FPW_1, fpw_2=tl.FPW_2)
+        metrics = []
+        for x, y in data:
+            pstate, m = pstep(pstate, torch.from_numpy(x), torch.from_numpy(y))
+            metrics.append({k: float(v) for k, v in m.items()})
+        assert pstate.step == len(data)
+        return (metrics, *state_dict_to_jax(model, model.state_dict()))
 
-        ref, ref_nudged = run_jax(batches), run_jax(nudged)
-
-    model = DeepLabv3plus(3, dtype=torch.float32, device="cpu")
-    load_jax_variables(model, variables["params"], variables["batch_stats"])
-    opt = build_optimizer("AdamW", model.parameters(), LR, eps=EPS, weight_decay=WD)
-    pstate = create_train_state(model, opt)
-    pstep = make_train_step(tl.class_weights(), fpw_1=tl.FPW_1, fpw_2=tl.FPW_2)
-    metrics = []
-    for x, y in batches:
-        pstate, m = pstep(pstate, torch.from_numpy(x), torch.from_numpy(y))
-        metrics.append({k: float(v) for k, v in m.items()})
-    params, stats = state_dict_to_jax(model, model.state_dict())
-    return {"port": (metrics, params, stats), "jax": ref, "jax_nudged": ref_nudged,
-            "start": variables["params"], "step": pstate.step}
+    return {"port": run_port(batches), "jax": ref, "port_nudged": run_port(nudged),
+            "start": variables["params"]}
 
 
 def _entry_diffs(a, b):
@@ -147,34 +146,33 @@ def _leaf_errs(a, b):
 
 
 def test_two_train_steps_match_jax():
-    """One test, so the JAX runs happen once per run (test workers each
+    """One test, so the JAX run happens once per run (test workers each
     compute a module fixture anew)."""
     runs = _two_steps()
     (port_m, port_p, port_s), (ref_m, ref_p, ref_s), (nud_m, nud_p, nud_s) = (
-        runs[k] for k in ("port", "jax", "jax_nudged"))
-    assert runs["step"] == 2
+        runs[k] for k in ("port", "jax", "port_nudged"))
 
     # Step 1 runs on identical weights: loss and IoU to fp32 noise.  Step 2
     # runs on weights after one update, and the train-mode gradients of the
-    # randomly initialised net are ill-conditioned (see test_torch_model.py):
-    # its loss must agree with JAX within 3x the distance between JAX and
-    # JAX on nudged inputs.
+    # randomly initialised net are chaotic at this size (see
+    # test_torch_model.py): its loss must agree with JAX within 2x the
+    # distance between the port and the port on nudged inputs.
     assert abs(port_m[0]["loss"] - ref_m[0]["loss"]) <= 1e-5 * ref_m[0]["loss"]
     assert abs(port_m[0]["iou"] - ref_m[0]["iou"]) <= 1e-6
-    spread = abs(nud_m[1]["loss"] - ref_m[1]["loss"])
-    assert abs(port_m[1]["loss"] - ref_m[1]["loss"]) <= 3 * spread + 1e-6 * ref_m[1]["loss"]
+    spread = abs(nud_m[1]["loss"] - port_m[1]["loss"])
+    assert abs(port_m[1]["loss"] - ref_m[1]["loss"]) <= 2 * spread + 1e-6 * ref_m[1]["loss"]
 
-    # Parameters after two AdamW steps: as close to JAX's as JAX's own
+    # Parameters after two AdamW steps: as close to JAX's as the port's own
     # nudged run (median and 99th percentile of the entry-wise differences
-    # within 3x), and both stacks really moved (median |Δ| > lr).
+    # within 2x), and both stacks really moved (median |Δ| > lr).
     port = _entry_diffs(port_p, ref_p)
-    nudge = _entry_diffs(nud_p, ref_p)
+    nudge = _entry_diffs(nud_p, port_p)
     assert np.median(_entry_diffs(runs["start"], ref_p)) > LR
     for q in (0.5, 0.99):
-        assert np.quantile(port, q) <= 3 * np.quantile(nudge, q), q
+        assert np.quantile(port, q) <= 2 * np.quantile(nudge, q), q
 
     # BN running statistics, leaf by leaf relative to the leaf's largest
-    # entry: median and worst within 3x JAX's nudged run.
-    port, nudge = _leaf_errs(port_s, ref_s), _leaf_errs(nud_s, ref_s)
-    assert np.median(port) <= 3 * np.median(nudge)
-    assert port.max() <= 3 * nudge.max()
+    # entry: median and worst within 2x the port's nudged run.
+    port, nudge = _leaf_errs(port_s, ref_s), _leaf_errs(nud_s, port_s)
+    assert np.median(port) <= 2 * np.median(nudge)
+    assert port.max() <= 2 * nudge.max()

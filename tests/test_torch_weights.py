@@ -66,6 +66,20 @@ def test_bridge_round_trip(pair):
             np.testing.assert_array_equal(g[k], w[k])
 
 
+def test_bridge_to_jax_copies(pair):
+    """A later in-place update of a port tensor (the running statistics of
+    a train step) leaves an earlier snapshot as it was."""
+    model, _, _ = pair
+    var = model.xception.bn5.running_var
+    _, stats = weights.state_dict_to_jax(model, model.state_dict())
+    before = stats["xception"]["bn5"]["var"].copy()
+    var.add_(1.0)
+    try:
+        np.testing.assert_array_equal(stats["xception"]["bn5"]["var"], before)
+    finally:
+        var.sub_(1.0)
+
+
 def test_bridge_raises_on_unassigned(pair):
     model, params, stats = pair
     extra = {**params, "extra": {"kernel": np.zeros((1,), np.float32)}}
