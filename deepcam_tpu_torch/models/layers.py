@@ -27,7 +27,14 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.fused_sepconv import fused_sepconv
+from ..ops.fused_sepconv import (
+    fused_sepconv,
+    fused_sepconv_affine,
+    fused_sepconv_affine_stats,
+    fused_sepconv_boundary,
+    fused_sepconv_boundary_stats,
+    fused_sepconv_stats,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -112,6 +119,45 @@ class ConvTranspose2d(nn.Module):
                                   stride=2, padding=1, output_padding=1)
 
 
+# ---------------------------------------------------------------------------
+# Configuration of the stride-1 units (the JAX module's switches and defaults)
+# ---------------------------------------------------------------------------
+
+# Fold each rep-unit BatchNorm's APPLY into the next sepconv unit's kernel
+# (BatchNorm2d(fold=True) → SeparableConv2dSame(bn_fold=...)): the same bf16
+# FMA, without a separate pass.
+_BN_FOLD = True
+# Emit the following BatchNorm's (Σy, Σy²) from the sepconv kernel in train
+# mode (BatchNorm2d(stats=...)).
+_FUSED_STATS = True
+
+
+def set_bn_fold(on: bool) -> None:
+    global _BN_FOLD
+    _BN_FOLD = bool(on)
+
+
+def bn_fold_active() -> bool:
+    return _BN_FOLD
+
+
+def boundary_fold_active() -> bool:
+    """Middle-flow block-boundary fold: the chain-final BN apply, the
+    residual add and the next block's leading ReLU run inside the next
+    block's unit-0 kernel, which also emits the residual stream.  Active
+    exactly when the BN-apply fold is."""
+    return bn_fold_active()
+
+
+def set_fused_stats(on: bool) -> None:
+    global _FUSED_STATS
+    _FUSED_STATS = bool(on)
+
+
+def fused_stats_active() -> bool:
+    return _FUSED_STATS
+
+
 def fixed_padding(kernel_size: int, rate: int):
     """Reference 'same' padding: effective kernel k + (k-1)(rate-1), split
     floor/ceil.  Returns (pad_beg, pad_end)."""
@@ -124,8 +170,9 @@ def fixed_padding(kernel_size: int, rate: int):
 class SeparableConv2dSame(nn.Module):
     """[ReLU →] depthwise 3×3 → pointwise 1×1, both bias-free, with the
     reference's 'same' padding.  Stride-1 units run as one fused kernel on
-    the card (``ops/fused_sepconv.py``); the stride-2 tail sepconvs stay two
-    cuDNN convs, as the JAX package leaves them to XLA."""
+    the card (``ops/fused_sepconv.py``), in the form their arguments ask
+    for; the stride-2 tail sepconvs stay two cuDNN convs, as the JAX package
+    leaves them to XLA."""
 
     def __init__(self, in_ch: int, features: int, *, stride: int = 1,
                  dilation: int = 1, pre_relu: bool = False,
@@ -136,21 +183,67 @@ class SeparableConv2dSame(nn.Module):
         self.depthwise = Conv2d(in_ch, in_ch, 3, groups=in_ch, dtype=dtype, gen=gen)
         self.pointwise = Conv2d(in_ch, features, 1, dtype=dtype, gen=gen)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bn_fold=None, emit_stats: bool = False,
+                boundary=None):
+        """``bn_fold=(a, b)``, from the preceding ``BatchNorm2d(fold=True)``:
+        the unit consumes ``x*a + b`` (inside the kernel for stride 1).
+
+        ``emit_stats=True`` returns ``(y, (Σy, Σy²))`` for the following
+        ``BatchNorm2d(stats=...)``; the stride-2 form returns ``(y, None)``
+        (the BN then reduces y itself).
+
+        ``boundary=((a, b), skip)``: ``x`` is the previous block's raw
+        chain-final pointwise output, and the unit consumes
+        ``r = relu(x*a + b + skip)``, formed inside the kernel.  Returns
+        ``(y, stats or None, r)``; r is the residual stream of the enclosing
+        block's skip path."""
         dw = self.depthwise.weight.to(self.dtype)  # (C, 1, 3, 3)
         pw = self.pointwise.weight.to(self.dtype)  # (F, C, 1, 1)
-        if self.stride == 1:
-            y = fused_sepconv(x.to(self.dtype).permute(0, 2, 3, 1),
-                              dw[:, 0].permute(1, 2, 0), pw[:, :, 0, 0].t(),
-                              self.pre_relu, self.dilation)
-            return y.permute(0, 3, 1, 2)
-        x = x.to(self.dtype)
-        if self.pre_relu:
-            x = torch.relu(x)
-        pad, _ = fixed_padding(3, self.dilation)  # symmetric for k=3
-        x = F.conv2d(x, dw, stride=self.stride, padding=pad,
-                     dilation=self.dilation, groups=x.shape[1])
-        return F.conv2d(x, pw)
+        if self.stride != 1:
+            if boundary is not None:
+                raise ValueError("the boundary form is stride-1 only")
+            x = x.to(self.dtype)
+            if bn_fold is not None:
+                a, b = bn_fold
+                x = x * a.to(self.dtype)[:, None, None] + b.to(self.dtype)[:, None, None]
+            if self.pre_relu:
+                x = torch.relu(x)
+            pad, _ = fixed_padding(3, self.dilation)  # symmetric for k=3
+            x = F.conv2d(x, dw, stride=self.stride, padding=pad,
+                         dilation=self.dilation, groups=x.shape[1])
+            y = F.conv2d(x, pw)
+            return (y, None) if emit_stats else y
+
+        def nhwc(t):
+            return t.to(self.dtype).permute(0, 2, 3, 1)
+
+        def nchw(t):
+            return t.permute(0, 3, 1, 2)
+
+        dwk, pwk = dw[:, 0].permute(1, 2, 0), pw[:, :, 0, 0].t()
+        if boundary is not None:
+            if self.pre_relu or bn_fold is not None:
+                raise ValueError("the boundary form applies its own ReLU and affine")
+            (ba, bb), skip = boundary
+            args = (nhwc(x), ba.to(self.dtype), bb.to(self.dtype), nhwc(skip), dwk, pwk,
+                    self.dilation)
+            if emit_stats:
+                y, r, s1, s2 = fused_sepconv_boundary_stats(*args)
+                return nchw(y), (s1, s2), nchw(r)
+            y, r = fused_sepconv_boundary(*args)
+            return nchw(y), None, nchw(r)
+        if bn_fold is not None:
+            a, b = bn_fold
+            fn = fused_sepconv_affine_stats if emit_stats else fused_sepconv_affine
+            out = fn(nhwc(x), a.to(self.dtype), b.to(self.dtype), dwk, pwk,
+                     self.pre_relu, self.dilation)
+        else:
+            fn = fused_sepconv_stats if emit_stats else fused_sepconv
+            out = fn(nhwc(x), dwk, pwk, self.pre_relu, self.dilation)
+        if emit_stats:
+            y, s1, s2 = out
+            return nchw(y), (s1, s2)
+        return nchw(out)
 
 
 # ---------------------------------------------------------------------------
@@ -161,13 +254,17 @@ class BatchNorm2d(nn.Module):
     """BatchNorm over N, H, W with the JAX module's numerics.
 
     * Train mode: fp32 batch statistics in one pass, var = max(E[x²] −
-      E[x]², 0).  The running statistics are updated IN PLACE (momentum 0.1,
-      torch convention, unbiased running variance) — the JAX module returns
-      them as a new ``batch_stats`` tree instead.
+      E[x]², 0): from ``stats=(Σx, Σx²)`` when the producing kernel emitted
+      them (no pass over x), else reduced here.  The running statistics are
+      updated IN PLACE (momentum 0.1, torch convention, unbiased running
+      variance) — the JAX module returns them as a new ``batch_stats`` tree
+      instead.
     * Eval mode: the running statistics.
     * The apply is ``x*a + b`` in ``dtype`` with a = γ/σ and b = β − μ·a
       computed in fp32 — written out, because ``F.batch_norm`` rounds at
-      other places.  ``relu=True`` fuses the following ReLU.
+      other places.  ``relu=True`` fuses the following ReLU; ``fold=True``
+      returns the per-channel ``(a, b)`` in ``dtype`` instead of applying
+      them, for the consuming unit's kernel.
     """
 
     def __init__(self, features: int, *, dtype: torch.dtype = torch.float32,
@@ -179,12 +276,17 @@ class BatchNorm2d(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, relu: bool = False, fold: bool = False,
+                stats=None):
         if self.training:
             n = x.shape[0] * x.shape[2] * x.shape[3]
-            x32 = x.float()
-            mean = x32.mean(dim=(0, 2, 3))
-            ex2 = (x32 * x32).mean(dim=(0, 2, 3))
+            if stats is not None:
+                s1, s2 = stats
+                mean, ex2 = s1 / n, s2 / n
+            else:
+                x32 = x.float()
+                mean = x32.mean(dim=(0, 2, 3))
+                ex2 = (x32 * x32).mean(dim=(0, 2, 3))
             var = torch.clamp_min(ex2 - mean * mean, 0.0)
             with torch.no_grad():
                 m = self.momentum
@@ -194,7 +296,9 @@ class BatchNorm2d(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps) * self.weight
-        a = inv.to(self.dtype)[:, None, None]
-        b = (self.bias - mean * inv).to(self.dtype)[:, None, None]
-        y = x.to(self.dtype) * a + b
+        a = inv.to(self.dtype)
+        b = (self.bias - mean * inv).to(self.dtype)
+        if fold:
+            return a, b
+        y = x.to(self.dtype) * a[:, None, None] + b[:, None, None]
         return torch.relu(y) if relu else y

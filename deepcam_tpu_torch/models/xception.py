@@ -4,10 +4,14 @@
 Entry flow (2 convs + 3 down-sampling blocks), 16 identical 728-channel
 middle blocks, exit flow (block20 + three dilated separable convs to 2048
 channels).  Every stride-1 separable conv (60 per forward) runs through the
-fused sepconv kernel.  This is the JAX model's path with the BN-apply fold,
-the kernel-emitted statistics and the block-boundary fold switched off
-(``DEEPCAM_BN_FOLD=0``, ``DEEPCAM_FUSED_STATS=0``): the same math, with each
-BN applied as its own op.
+fused sepconv kernel.  By default this is the JAX model's default path: each
+rep BatchNorm whose only consumer is the next sepconv hands its apply to that
+unit's kernel (BN-apply fold), train-mode units emit the following BN's
+statistics, and the middle-flow blocks pass their chain-final (raw output,
+BN coefficients, residual stream) to the next block's unit 0, which forms
+the boundary inside its kernel.  ``layers.set_bn_fold(False)`` and
+``layers.set_fused_stats(False)`` give the same math with each BN applied as
+its own op (the JAX configuration ``DEEPCAM_BN_FOLD=0 DEEPCAM_FUSED_STATS=0``).
 """
 
 from __future__ import annotations
@@ -15,7 +19,14 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from .layers import BatchNorm2d, Conv2d, SeparableConv2dSame
+from .layers import (
+    BatchNorm2d,
+    Conv2d,
+    SeparableConv2dSame,
+    bn_fold_active,
+    boundary_fold_active,
+    fused_stats_active,
+)
 
 
 class XceptionBlock(nn.Module):
@@ -62,14 +73,48 @@ class XceptionBlock(nn.Module):
             self.skip_conv = Conv2d(in_ch, out_ch, 1, stride=stride, dtype=dtype, gen=gen)
             self.skip_bn = BatchNorm2d(out_ch, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.start_with_relu:
-            x = torch.relu(x)
-        inp = x
+    def forward(self, x: torch.Tensor, boundary_in=None, emit_boundary: bool = False):
+        """``boundary_in=((a, b), skip)``: ``x`` is the previous block's raw
+        chain-final pointwise output, and this block's input stream
+        ``r = relu(x*a + b + skip)`` is formed inside unit 0's kernel (needs
+        ``start_with_relu``).
+
+        ``emit_boundary=True`` (stride-1 blocks without a tail and with an
+        identity skip): instead of applying the chain-final BN and the
+        residual add, return the pending triple ``(y_last_raw, (a, b),
+        skip)`` for the next block to fold."""
+        if boundary_in is not None:
+            if not self.start_with_relu:
+                raise ValueError("boundary_in needs start_with_relu")
+            inp = None  # unit 0's r
+        else:
+            if self.start_with_relu:
+                x = torch.relu(x)
+            inp = x
+        fold = bn_fold_active()
+        emit = fused_stats_active() and self.training
+        has_tail = self.tail is not None
+        if emit_boundary and (has_tail or not fold or self.skip_conv is not None):
+            raise ValueError("emit_boundary needs the BN fold, no tail and an identity skip")
+        ab = None
         for i in range(self.n_units):
-            x = getattr(self, f"bn{i}")(getattr(self, f"sepconv{i}")(x))
-        if self.tail is not None:
-            x = getattr(self, self.tail)(x)
+            sepconv, bn = getattr(self, f"sepconv{i}"), getattr(self, f"bn{i}")
+            if i == 0 and boundary_in is not None:
+                x, st, inp = sepconv(x, emit_stats=emit, boundary=boundary_in)
+            else:
+                x = sepconv(x, bn_fold=ab, emit_stats=emit)
+                st = None
+                if emit:
+                    x, st = x
+            # a BN whose only consumer is the next sepconv hands it (a, b)
+            if fold and (i < self.n_units - 1 or has_tail or emit_boundary):
+                ab = bn(x, fold=True, stats=st)
+            else:
+                x, ab = bn(x, stats=st), None
+        if emit_boundary:
+            return x, ab, inp
+        if has_tail:
+            x = getattr(self, self.tail)(x, bn_fold=ab)
         skip = inp if self.skip_conv is None else self.skip_bn(self.skip_conv(inp))
         return x + skip
 
@@ -110,10 +155,36 @@ class Xception(nn.Module):
         # block2's leading inplace ReLU mutates the reference's low-level
         # tap too: downstream consumers receive relu(block1_out)
         low_level = torch.relu(x)
-        x = self.block2(x)
-        for i in range(3, 21):
-            x = getattr(self, f"block{i}")(x)
-        x = self.bn3(self.conv3(x))
-        x = self.bn4(self.conv4(x))
-        x = self.bn5(self.conv5(x), relu=True)
+        x = self.block3(self.block2(x))
+        # middle flow: with the boundary fold each block hands its pending
+        # triple to the next block's unit 0 (boundaries 4→5 … 19→20)
+        pending = None
+        for i in range(4, 20):
+            block = getattr(self, f"block{i}")
+            if not boundary_fold_active():
+                x = block(x)
+            elif pending is None:
+                pending = block(x, emit_boundary=True)
+            else:
+                pending = block(pending[0], boundary_in=pending[1:], emit_boundary=True)
+        if pending is not None:
+            x = self.block20(pending[0], boundary_in=pending[1:])
+        else:
+            x = self.block20(x)
+
+        # exit flow: bn3 and bn4 feed only the next sepconv, so their applies
+        # fold into conv4 and conv5
+        fold = bn_fold_active()
+        emit = fused_stats_active() and self.training
+        ab = None
+        for conv, bn in ((self.conv3, self.bn3), (self.conv4, self.bn4)):
+            x = conv(x, bn_fold=ab, emit_stats=emit)
+            x, st = x if emit else (x, None)
+            if fold:
+                ab = bn(x, fold=True, stats=st)
+            else:
+                x, ab = bn(x, stats=st), None
+        x = self.conv5(x, bn_fold=ab, emit_stats=emit)
+        x, st = x if emit else (x, None)
+        x = self.bn5(x, relu=True, stats=st)
         return x, low_level

@@ -1,4 +1,5 @@
-// Shared tile machinery of the fused-sepconv kernels: one 64x128 output tile
+// Shared machinery of the fused-sepconv kernels: the deterministic partial-sum
+// reduction, the bf16 rounding of the folded BN apply, and one 64x128 output tile
 // per block of 256 threads, K consumed in chunks of 32, bf16 operands staged
 // in shared memory and multiplied on the tensor cores through nvcuda::wmma
 // with fp32 accumulators.  8 warps form a 2 (rows) x 4 (cols) grid; each
@@ -116,6 +117,88 @@ __device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
 #pragma unroll
   for (int e = 0; e < 8; ++e) t.h[e] = __float2bfloat16_rn(f[e]);
   return t.u;
+}
+
+// f rounded to bf16 and back (round to nearest even, as PyTorch rounds)
+__device__ __forceinline__ float bf16_round(float f) {
+  return __bfloat162float(__float2bfloat16_rn(f));
+}
+
+// (a, b) rounded to bf16 and back as a pair: one packed conversion
+__device__ __forceinline__ float2 bf16_round2(float a, float b) {
+  return __bfloat1622float2(__floats2bfloat162_rn(a, b));
+}
+
+// The prologue of a unit whose preceding BatchNorm apply is folded in, with
+// PyTorch's bf16 rounding at each op and no FMA contraction:
+//   u = bf16(bf16(x * a) + b), then with skip u = bf16(u + skip)
+__device__ __forceinline__ void affine8(float (&u)[8], const float* a, const float* b) {
+#pragma unroll
+  for (int e = 0; e < 8; e += 2) {
+    const float2 m = bf16_round2(__fmul_rn(u[e], a[e]), __fmul_rn(u[e + 1], a[e + 1]));
+    const float2 t = bf16_round2(__fadd_rn(m.x, b[e]), __fadd_rn(m.y, b[e + 1]));
+    u[e] = t.x;
+    u[e + 1] = t.y;
+  }
+}
+
+__device__ __forceinline__ void add_round8(float (&u)[8], const uint4 skip) {
+  float s[8];
+  unpack8(skip, s);
+#pragma unroll
+  for (int e = 0; e < 8; e += 2) {
+    const float2 t = bf16_round2(__fadd_rn(u[e], s[e]), __fadd_rn(u[e + 1], s[e + 1]));
+    u[e] = t.x;
+    u[e + 1] = t.y;
+  }
+}
+
+// ---- out[y][i] = sum of part[k][i] over k in chunk y, in a fixed order ----
+// Chunk y is k in [y * chunk, min((y + 1) * chunk, S)).  Block (32 outputs,
+// blockIdx.x) x (8 lanes): lane l adds k = start + l, start + l + 8, ... in
+// order, then lane 0 adds the 8 lane sums in order.  No atomics, so the sum
+// is the same on every run.
+__global__ void __launch_bounds__(THREADS)
+reduce_kernel(const float* __restrict__ part, float* __restrict__ out, int S, long M,
+              int chunk) {
+  __shared__ float red[8][32];
+  const int tx = threadIdx.x & 31;
+  const int ty = threadIdx.x >> 5;
+  const long i = (long)blockIdx.x * 32 + tx;
+  const int k0 = blockIdx.y * chunk;
+  const int k1 = min(k0 + chunk, S);
+  float s = 0.0f;
+  if (i < M)
+    for (int k = k0 + ty; k < k1; k += 8) s += part[(long)k * M + i];
+  red[ty][tx] = s;
+  __syncthreads();
+  if (ty == 0 && i < M) {
+    float t = 0.0f;
+#pragma unroll
+    for (int l = 0; l < 8; ++l) t += red[l][tx];
+    out[(long)blockIdx.y * M + i] = t;
+  }
+}
+
+constexpr int RED_CHUNK = 256;
+
+// out[i] = sum over the S partials part[k][i] (M outputs).  One pass; or,
+// when `scratch` is given and S > RED_CHUNK, two: chunks of RED_CHUNK
+// partials into scratch (ceil(S / RED_CHUNK) x M floats), then those.
+// Returns the first non-zero cudaGetLastError(), else 0.
+inline int reduce_partials(const float* part, float* out, float* scratch, int S, long M,
+                           cudaStream_t st) {
+  const unsigned gx = (unsigned)((M + 31) / 32);
+  if (scratch != nullptr && S > RED_CHUNK) {
+    const int s1 = (S + RED_CHUNK - 1) / RED_CHUNK;
+    reduce_kernel<<<dim3(gx, (unsigned)s1), THREADS, 0, st>>>(part, scratch, S, M, RED_CHUNK);
+    const int err = (int)cudaGetLastError();
+    if (err) return err;
+    part = scratch;
+    S = s1;
+  }
+  reduce_kernel<<<dim3(gx, 1), THREADS, 0, st>>>(part, out, S, M, S);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace dsc

@@ -1,33 +1,55 @@
-"""Fused [ReLU →] depthwise 3×3 → pointwise 1×1 unit, forward and backward.
+"""Fused [BN-apply →] [+skip →] [ReLU →] depthwise 3×3 → pointwise 1×1
+unit, forward and backward.
 
-Counterpart of ``deepcam_tpu/ops/pallas/fused_sepconv.py`` in its base form
-(``fused_sepconv``: no folded BN affine, no residual operand, no emitted
-statistics; the forward emits the depthwise output for the backward).  Every
-stride-1 separable conv of the Xception trunk runs through it: 60 units per
-training step.
+Counterpart of ``deepcam_tpu/ops/pallas/fused_sepconv.py`` in all its forms,
+under the JAX entry points' names, argument orders and outputs:
+
+==================================  =====================================  ==============
+entry point                         computes                               returns
+==================================  =====================================  ==============
+``fused_sepconv``                   [relu](x) → dw → pw                    y
+``fused_sepconv_affine``            [relu](x·a + b) → dw → pw              y
+``fused_sepconv_stats``             as ``fused_sepconv``                   y, Σy, Σy²
+``fused_sepconv_affine_stats``      as ``fused_sepconv_affine``            y, Σy, Σy²
+``fused_sepconv_boundary``          r = relu(x·a + b + skip) → dw → pw     y, r
+``fused_sepconv_boundary_stats``    as ``fused_sepconv_boundary``          y, r, Σy, Σy²
+==================================  =====================================  ==============
+
+The affine is the folded apply of the preceding BatchNorm (a, b per-channel,
+in x.dtype); the statistics are per-channel fp32 sums of the rounded y for
+the following BatchNorm; the boundary form is the middle-flow block boundary
+(chain-final BN apply, residual add, next block's ReLU), whose r is the next
+residual stream.  Every stride-1 separable conv of the Xception trunk runs
+through one of them: 60 units per training step.
 
 Two versions of each direction live here:
 
 * the CUDA kernels of ``csrc/sepconv_fwd.cu`` and ``csrc/sepconv_bwd.cu``
   (Hopper, ``sm_90a``, built by ``ops/build.py`` at first use), which run for
-  tensors on the card;
+  tensors on the card, every form in one kernel pair;
 * a plain PyTorch version with the same arithmetic, which runs for tensors on
   the CPU (the tests) and is what ``chip_smoke.py`` holds the kernels to.
 
-The arithmetic of both: bf16 operands are upcast to fp32 before every
-product; the depthwise sum is fp32 in tap order and rounded once to the
-input type (d); the pointwise product accumulates in fp32 and rounds to the
-input type; the backward keeps dd = g·pwᵀ in fp32 and returns d_dw and d_pw
-as fp32 sums.  The ReLU mask of the backward compares x in fp32.
+The arithmetic of both: the affine is the bf16 product rounded, then the bf16
+sum rounded (``x*a + b`` as PyTorch computes it in x.dtype), the residual add
+is rounded too, and the 'same' border of the depthwise is zero after them;
+bf16 operands are upcast to fp32 before every product; the depthwise sum is
+fp32 in tap order and rounded once to the input type (d); the pointwise
+product accumulates in fp32 and rounds to the input type; Σy and Σy² are
+fp32 sums of the rounded y.  The backward folds the statistics cotangent into
+g as ``bf16(g + (gs1 + 2·y·gs2))``, adds r's outside cotangent before the
+ReLU mask, compares u in fp32 for the mask, keeps dd = g·pwᵀ in fp32 and
+returns d_dw, d_pw, da and db as fp32 sums.
 
-Layout is the JAX package's: x (N, H, W, C), dwk (3, 3, C), pwk (C, F),
-y (N, H, W, F).
+Layout is the JAX package's: x, skip, r (N, H, W, C), dwk (3, 3, C),
+pwk (C, F), a, b (C,), y (N, H, W, F), Σy and Σy² (F,).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -37,11 +59,41 @@ from .build import library
 # Launches of each kernel wrapper since the last reset.  A wrapper adds one
 # where it launches its kernel(s), nowhere else.
 LAUNCHES = {"sepconv_fwd": 0, "sepconv_bwd": 0}
+# Launches of each kernel wrapper by form (the entry point's name without
+# ``fused_sepconv_``; ``base`` for ``fused_sepconv``), counted in the same
+# place.
+FORMS = ("base", "affine", "stats", "affine_stats", "boundary", "boundary_stats")
+FORM_LAUNCHES = {k: dict.fromkeys(FORMS, 0) for k in LAUNCHES}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        FORM_LAUNCHES[k].update(dict.fromkeys(FORMS, 0))
+
+
+def form_name(affine: bool, skip: bool, stats: bool) -> str:
+    """The form of a unit with these operands and outputs."""
+    name = "boundary" if skip else ("affine" if affine else "")
+    if stats:
+        name = f"{name}_stats" if name else "stats"
+    return name or "base"
+
+
+class FwdOut(NamedTuple):
+    y: torch.Tensor
+    d: Optional[torch.Tensor]      # the rounded depthwise output, when emitted
+    r: Optional[torch.Tensor]      # relu(x·a + b + skip), with skip
+    stats: Optional[torch.Tensor]  # (2, F) fp32: Σy, Σy²
+
+
+class BwdOut(NamedTuple):
+    dx: torch.Tensor
+    ddw: torch.Tensor              # (3, 3, C) fp32
+    dpw: torch.Tensor              # (C, F) fp32
+    da: Optional[torch.Tensor]     # (C,) fp32, with the affine
+    db: Optional[torch.Tensor]
+    dskip: Optional[torch.Tensor]  # in x.dtype, with skip
 
 
 # ---------------------------------------------------------------------------
@@ -69,29 +121,54 @@ def _depthwise32(t32, k32, d, flip=False):
     return acc
 
 
-def sepconv_fwd_plain(x, dwk, pwk, pre_relu: bool, dilation: int):
-    """Returns (y, d): y (N, H, W, F) and the rounded depthwise output d
-    (N, H, W, C), both in x.dtype."""
-    h = torch.clamp_min(x, 0) if pre_relu else x
+def _prologue(x, a, b, skip):
+    """u = x·a + b [+ skip] in x.dtype (each op rounded), or x."""
+    u = x if a is None else x * a + b
+    return u if skip is None else u + skip
+
+
+def sepconv_fwd_plain(x, dwk, pwk, pre_relu: bool, dilation: int, *, a=None, b=None,
+                      skip=None, emit_stats: bool = False) -> FwdOut:
+    """All outputs of the forward kernel; d always, r with ``skip``, the
+    statistics with ``emit_stats``."""
+    u = _prologue(x, a, b, skip)
+    h = torch.clamp_min(u, 0) if pre_relu else u
     d = _depthwise32(h.float(), dwk.float(), dilation).to(x.dtype)
     y = torch.matmul(d.float(), pwk.float()).to(x.dtype)
-    return y, d
+    stats = None
+    if emit_stats:
+        y32 = y.float()
+        stats = torch.stack([y32.sum((0, 1, 2)), (y32 * y32).sum((0, 1, 2))])
+    return FwdOut(y, d, h if skip is not None else None, stats)
 
 
-def sepconv_bwd_plain(x, g, dwk, pwk, d, pre_relu: bool, dilation: int):
-    """Returns (dx in x.dtype, d_dw (3, 3, C) fp32, d_pw (C, F) fp32)."""
+def sepconv_bwd_plain(x, g, dwk, pwk, d, pre_relu: bool, dilation: int, *, a=None,
+                      b=None, skip=None, gr=None, y=None, gs1=None, gs2=None) -> BwdOut:
+    """All outputs of the backward kernels.  ``gr`` (with ``skip``) is the
+    cotangent of r; ``y``, ``gs1`` and ``gs2`` the statistics cotangent."""
     c = x.shape[-1]
+    if y is not None:  # the cotangents of Σy and Σy² folded into y's
+        g = (g.float() + (gs1 + 2.0 * y.float() * gs2)).to(g.dtype)
     g32 = g.float()
     dd = torch.matmul(g32, pwk.float().t())
     dh = _depthwise32(dd, dwk.float(), dilation, flip=True)
+    if gr is not None:
+        dh = dh + gr.float()
+    u = _prologue(x, a, b, skip)
     if pre_relu:
-        dh = torch.where(x.float() > 0, dh, torch.zeros((), device=dh.device))
-    h32 = (torch.clamp_min(x, 0) if pre_relu else x).float()
+        dh = torch.where(u.float() > 0, dh, torch.zeros((), device=dh.device))
+    dskip = dh.to(x.dtype) if skip is not None else None
+    da = db = None
+    if a is not None:
+        da = (dh * x.float()).sum((0, 1, 2))
+        db = dh.sum((0, 1, 2))
+        dh = dh * a.float()
+    h32 = (torch.clamp_min(u, 0) if pre_relu else u).float()
     htaps = _taps(h32, dilation)
     ddw = torch.stack([torch.stack([(htaps[i][j] * dd).sum((0, 1, 2))
                                     for j in range(3)]) for i in range(3)])
     dpw = torch.matmul(d.reshape(-1, c).float().t(), g32.reshape(-1, g.shape[-1]))
-    return dh.to(x.dtype), ddw, dpw
+    return BwdOut(dh.to(x.dtype), ddw, dpw, da, db, dskip)
 
 
 # ---------------------------------------------------------------------------
@@ -100,13 +177,17 @@ def sepconv_bwd_plain(x, g, dwk, pwk, d, pre_relu: bool, dilation: int):
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# pixels per forward block (BM) and partials per first reduction pass
+# (RED_CHUNK), as in csrc/tile_mma.cuh
+_BM = 64
+_RED_CHUNK = 256
 
 
 def _fwd_lib():
     lib = library("sepconv_fwd")
     fn = lib.sepconv_fwd
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 5 + [_I] * 7 + [_P]
+        fn.argtypes = [_P] * 12 + [_I] * 7 + [_P]
         fn.restype = _I
     return fn
 
@@ -115,20 +196,22 @@ def _bwd_lib():
     lib = library("sepconv_bwd")
     fn = lib.sepconv_bwd
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 11 + [_I] * 9 + [ctypes.c_long, _P]
+        fn.argtypes = [_P] * 19 + [_I] * 9 + [ctypes.c_long, _P]
         fn.restype = _I
     return fn
 
 
-def _check(name, t, shape, dtype=torch.bfloat16):
+def _check(name, t, shape, dtype=torch.bfloat16, device=None):
     if t.device.type != "cuda" or t.dtype != dtype or tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: want a {dtype} CUDA tensor of shape "
                          f"{tuple(shape)}, got {t.dtype} {t.device} {tuple(t.shape)}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, want {device} (x's device)")
     if not t.is_contiguous() or t.data_ptr() % 16:
         raise ValueError(f"{name}: must be contiguous and 16-byte aligned")
 
 
-def _check_unit(x, dwk, pwk, dilation):
+def _check_unit(x, dwk, pwk, dilation, pre_relu, a, b, skip):
     n, h, w, c = x.shape
     f = pwk.shape[-1]
     if c % 8 or f % 8:
@@ -136,10 +219,17 @@ def _check_unit(x, dwk, pwk, dilation):
     if dilation < 1:
         raise ValueError(f"dilation must be >= 1, got {dilation}")
     _check("x", x, (n, h, w, c))
-    _check("dwk", dwk, (3, 3, c))
-    _check("pwk", pwk, (c, f))
-    if x.device != dwk.device or x.device != pwk.device:
-        raise ValueError("x, dwk and pwk must be on one device")
+    _check("dwk", dwk, (3, 3, c), device=x.device)
+    _check("pwk", pwk, (c, f), device=x.device)
+    if (a is None) != (b is None):
+        raise ValueError("the affine needs both a and b")
+    if a is not None:
+        _check("a", a, (c,), device=x.device)
+        _check("b", b, (c,), device=x.device)
+    if skip is not None:
+        if a is None or not pre_relu:
+            raise ValueError("skip (the block boundary) needs the affine and pre_relu")
+        _check("skip", skip, (n, h, w, c), device=x.device)
     return n, h, w, c, f
 
 
@@ -147,18 +237,36 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def sepconv_fwd(x, dwk, pwk, pre_relu: bool, dilation: int, emit_d: bool):
-    """The forward kernel on bf16 CUDA tensors.  Returns (y, d or None)."""
-    n, h, w, c, f = _check_unit(x, dwk, pwk, dilation)
-    y = torch.empty((n, h, w, f), dtype=x.dtype, device=x.device)
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def sepconv_fwd(x, dwk, pwk, pre_relu: bool, dilation: int, emit_d: bool, *, a=None,
+                b=None, skip=None, emit_stats: bool = False) -> FwdOut:
+    """The forward kernel on bf16 CUDA tensors, any form: ``a``, ``b`` (C,)
+    fold the preceding BN apply, ``skip`` (needs them and ``pre_relu``) makes
+    the boundary form, ``emit_stats`` adds (Σy, Σy²)."""
+    n, h, w, c, f = _check_unit(x, dwk, pwk, dilation, pre_relu, a, b, skip)
+    dev = x.device
+    y = torch.empty((n, h, w, f), dtype=x.dtype, device=dev)
     d = torch.empty_like(x) if emit_d else None
-    rc = _fwd_lib()(x.data_ptr(), dwk.data_ptr(), pwk.data_ptr(), y.data_ptr(),
-                    d.data_ptr() if emit_d else None,
-                    n, h, w, c, f, dilation, int(pre_relu), _stream(x))
+    r = torch.empty_like(x) if skip is not None else None
+    spart = sscratch = stats = None
+    if emit_stats:
+        nbx = -(-n * h * w // _BM)
+        spart = torch.empty((nbx, 2, f), dtype=torch.float32, device=dev)
+        if nbx > _RED_CHUNK:
+            sscratch = torch.empty((-(-nbx // _RED_CHUNK), 2, f), dtype=torch.float32,
+                                   device=dev)
+        stats = torch.empty((2, f), dtype=torch.float32, device=dev)
+    rc = _fwd_lib()(x.data_ptr(), dwk.data_ptr(), pwk.data_ptr(), _ptr(a), _ptr(b),
+                    _ptr(skip), y.data_ptr(), _ptr(d), _ptr(r), _ptr(spart), _ptr(sscratch),
+                    _ptr(stats), n, h, w, c, f, dilation, int(pre_relu), _stream(x))
     if rc:
         raise RuntimeError(f"sepconv_fwd launch failed: CUDA error {rc}")
     LAUNCHES["sepconv_fwd"] += 1
-    return y, d
+    FORM_LAUNCHES["sepconv_fwd"][form_name(a is not None, skip is not None, emit_stats)] += 1
+    return FwdOut(y, d, r, stats)
 
 
 # blocks per SM the backward aims for when it splits a reduction
@@ -187,35 +295,53 @@ def bwd_plan(p: int, c: int, f: int, sms: int):
     return ppb, splits, chunk
 
 
-def sepconv_bwd(x, g, dwk, pwk, d, pre_relu: bool, dilation: int):
-    """The backward kernels on bf16 CUDA tensors.  Returns (dx, d_dw fp32,
-    d_pw fp32)."""
-    n, h, w, c, f = _check_unit(x, dwk, pwk, dilation)
-    _check("g", g, (n, h, w, f))
-    _check("d", d, (n, h, w, c))
-    p = n * h * w
-    ppb, splits, chunk = bwd_plan(p, c, f, _sm_count(x.device.index))
-    nblk = -(-p // ppb)
+def sepconv_bwd(x, g, dwk, pwk, d, pre_relu: bool, dilation: int, *, a=None, b=None,
+                skip=None, gr=None, y=None, gs1=None, gs2=None) -> BwdOut:
+    """The backward kernels on bf16 CUDA tensors, any form: ``a``, ``b`` as
+    in the forward (adds da, db), ``skip`` with ``gr`` (r's cotangent, may be
+    None; adds d_skip), ``y`` with ``gs1``, ``gs2`` ((F,) fp32 cotangents of
+    Σy and Σy², folded into g)."""
+    n, h, w, c, f = _check_unit(x, dwk, pwk, dilation, pre_relu, a, b, skip)
     dev = x.device
+    _check("g", g, (n, h, w, f), device=dev)
+    _check("d", d, (n, h, w, c), device=dev)
+    if gr is not None:
+        if skip is None:
+            raise ValueError("gr is the cotangent of r: it needs skip")
+        _check("gr", gr, (n, h, w, c), device=dev)
+    if (y is None) != (gs1 is None) or (y is None) != (gs2 is None):
+        raise ValueError("the statistics cotangent needs y, gs1 and gs2")
+    if y is not None:
+        _check("y", y, (n, h, w, f), device=dev)
+        _check("gs1", gs1, (f,), torch.float32, device=dev)
+        _check("gs2", gs2, (f,), torch.float32, device=dev)
+    p = n * h * w
+    ppb, splits, chunk = bwd_plan(p, c, f, _sm_count(dev.index))
+    nblk = -(-p // ppb)
+    rows = 11 if a is not None else 9
     dx = torch.empty_like(x)
-    ddw = torch.empty((3, 3, c), dtype=torch.float32, device=dev)
+    dskip = torch.empty_like(x) if skip is not None else None
+    dwab = torch.empty((rows, c), dtype=torch.float32, device=dev)
     dpw = torch.empty((c, f), dtype=torch.float32, device=dev)
     dd = torch.empty((p, c), dtype=torch.float32, device=dev)
-    ddw_part = torch.empty((nblk, 9, c), dtype=torch.float32, device=dev)
+    ddw_part = torch.empty((nblk, rows, c), dtype=torch.float32, device=dev)
     dpw_part = torch.empty((splits, c, f), dtype=torch.float32, device=dev)
     rc = _bwd_lib()(x.data_ptr(), g.data_ptr(), dwk.data_ptr(), pwk.data_ptr(),
-                    d.data_ptr(), dx.data_ptr(), ddw.data_ptr(), dpw.data_ptr(),
-                    dd.data_ptr(), ddw_part.data_ptr(), dpw_part.data_ptr(),
-                    n, h, w, c, f, dilation, int(pre_relu), ppb, splits, chunk,
-                    _stream(x))
+                    d.data_ptr(), _ptr(a), _ptr(b), _ptr(skip), _ptr(gr), _ptr(y),
+                    _ptr(gs1), _ptr(gs2), dx.data_ptr(), _ptr(dskip), dwab.data_ptr(),
+                    dpw.data_ptr(), dd.data_ptr(), ddw_part.data_ptr(),
+                    dpw_part.data_ptr(), n, h, w, c, f, dilation, int(pre_relu), ppb,
+                    splits, chunk, _stream(x))
     if rc:
         raise RuntimeError(f"sepconv_bwd launch failed: CUDA error {rc}")
     LAUNCHES["sepconv_bwd"] += 1
-    return dx, ddw, dpw
+    FORM_LAUNCHES["sepconv_bwd"][form_name(a is not None, skip is not None, y is not None)] += 1
+    da, db = (dwab[9], dwab[10]) if a is not None else (None, None)
+    return BwdOut(dx, dwab[:9].view(3, 3, c), dpw, da, db, dskip)
 
 
 # ---------------------------------------------------------------------------
-# autograd entry point
+# autograd entry points
 # ---------------------------------------------------------------------------
 
 def _device_kind(x):
@@ -226,33 +352,95 @@ def _device_kind(x):
 
 
 class _FusedSepconv(torch.autograd.Function):
+    """Every form: outputs (y[, r][, Σy, Σy²]); the backward receives their
+    cotangents (None where an output is unused) and returns (dx, da, db,
+    d_skip, d_dwk, d_pwk), each None where its input was."""
 
     @staticmethod
-    def forward(ctx, x, dwk, pwk, pre_relu, dilation):
-        emit_d = any(ctx.needs_input_grad[:3])
+    def forward(ctx, x, a, b, skip, dwk, pwk, pre_relu, dilation, emit_stats):
+        ctx.set_materialize_grads(False)
+        emit_d = any(ctx.needs_input_grad[:6])
+        kw = dict(a=a, b=b, skip=skip, emit_stats=emit_stats)
         if _device_kind(x) == "cuda":
-            y, d = sepconv_fwd(x, dwk, pwk, pre_relu, dilation, emit_d)
+            out = sepconv_fwd(x, dwk, pwk, pre_relu, dilation, emit_d, **kw)
         else:
-            y, d = sepconv_fwd_plain(x, dwk, pwk, pre_relu, dilation)
-        ctx.pre_relu, ctx.dilation = pre_relu, dilation
-        ctx.save_for_backward(x, dwk, pwk, d if emit_d else None)
-        return y
+            out = sepconv_fwd_plain(x, dwk, pwk, pre_relu, dilation, **kw)
+        ctx.pre_relu, ctx.dilation, ctx.emit_stats = pre_relu, dilation, emit_stats
+        if emit_d:
+            ctx.save_for_backward(x, a, b, skip, dwk, pwk, out.d,
+                                  out.y if emit_stats else None)
+        outs = (out.y,) + ((out.r,) if skip is not None else ())
+        if emit_stats:
+            outs += (out.stats[0], out.stats[1])
+        return outs
 
     @staticmethod
-    def backward(ctx, g):
-        x, dwk, pwk, d = ctx.saved_tensors
-        g = g.to(x.dtype).contiguous()
-        if _device_kind(x) == "cuda":
-            dx, ddw, dpw = sepconv_bwd(x, g, dwk, pwk, d, ctx.pre_relu, ctx.dilation)
+    def backward(ctx, gy, *rest):
+        x, a, b, skip, dwk, pwk, d, y = ctx.saved_tensors
+        gr = rest[0] if skip is not None else None
+        gs1 = gs2 = None
+        if ctx.emit_stats:
+            gs1, gs2 = rest[-2:]
+        shape_y = (*x.shape[:-1], pwk.shape[-1])
+        gy = (x.new_zeros(shape_y) if gy is None else gy.to(x.dtype)).contiguous()
+        if gr is not None:
+            gr = gr.to(x.dtype).contiguous()
+        if gs1 is None and gs2 is None:
+            y = None
         else:
-            dx, ddw, dpw = sepconv_bwd_plain(x, g, dwk, pwk, d, ctx.pre_relu,
-                                             ctx.dilation)
-        return dx, ddw.to(dwk.dtype), dpw.to(pwk.dtype), None, None
+            gs1, gs2 = ((x.new_zeros(pwk.shape[-1], dtype=torch.float32) if t is None
+                         else t.float().contiguous()) for t in (gs1, gs2))
+        kw = dict(a=a, b=b, skip=skip, gr=gr, y=y, gs1=gs1, gs2=gs2)
+        if _device_kind(x) == "cuda":
+            out = sepconv_bwd(x, gy, dwk, pwk, d, ctx.pre_relu, ctx.dilation, **kw)
+        else:
+            out = sepconv_bwd_plain(x, gy, dwk, pwk, d, ctx.pre_relu, ctx.dilation, **kw)
+        # da and db rounded to a's type, as the JAX VJP rounds them
+        da = out.da.to(a.dtype) if a is not None else None
+        db = out.db.to(b.dtype) if b is not None else None
+        return (out.dx, da, db, out.dskip, out.ddw.to(dwk.dtype), out.dpw.to(pwk.dtype),
+                None, None, None)
+
+
+def _unit(x, a, b, skip, dwk, pwk, pre_relu, dilation, emit_stats):
+    c = lambda t: None if t is None else t.contiguous()  # noqa: E731
+    return _FusedSepconv.apply(c(x), c(a), c(b), c(skip), c(dwk), c(pwk), bool(pre_relu),
+                               int(dilation), bool(emit_stats))
 
 
 def fused_sepconv(x, dwk, pwk, pre_relu: bool = True, dilation: int = 1):
     """[relu →] depthwise3x3('same', dilation) → pointwise, as one kernel on
     the card.  x: (N, H, W, C); dwk: (3, 3, C); pwk: (C, F).  Returns
     (N, H, W, F) in x.dtype; differentiable in x, dwk and pwk."""
-    return _FusedSepconv.apply(x.contiguous(), dwk.contiguous(), pwk.contiguous(),
-                               bool(pre_relu), int(dilation))
+    return _unit(x, None, None, None, dwk, pwk, pre_relu, dilation, False)[0]
+
+
+def fused_sepconv_affine(x, a, b, dwk, pwk, pre_relu: bool = True, dilation: int = 1):
+    """``[relu(] x·a + b [)] → dw3x3 → pw``, with a, b (C,) the preceding
+    BatchNorm's apply coefficients in x.dtype.  Returns y."""
+    return _unit(x, a, b, None, dwk, pwk, pre_relu, dilation, False)[0]
+
+
+def fused_sepconv_stats(x, dwk, pwk, pre_relu: bool = True, dilation: int = 1):
+    """``fused_sepconv`` that also returns the per-channel fp32 sums of the
+    rounded output: ``(y, Σy, Σy²)``."""
+    return _unit(x, None, None, None, dwk, pwk, pre_relu, dilation, True)
+
+
+def fused_sepconv_affine_stats(x, a, b, dwk, pwk, pre_relu: bool = True,
+                               dilation: int = 1):
+    """``fused_sepconv_affine`` that also returns ``(Σy, Σy²)``:
+    ``(y, Σy, Σy²)``."""
+    return _unit(x, a, b, None, dwk, pwk, pre_relu, dilation, True)
+
+
+def fused_sepconv_boundary(x, a, b, skip, dwk, pwk, dilation: int = 1):
+    """The block boundary: ``r = relu(x·a + b + skip)`` (the next residual
+    stream) and ``y = pw(dw3x3(r))``.  Returns ``(y, r)``."""
+    return _unit(x, a, b, skip, dwk, pwk, True, dilation, False)
+
+
+def fused_sepconv_boundary_stats(x, a, b, skip, dwk, pwk, dilation: int = 1):
+    """``fused_sepconv_boundary`` that also returns ``(Σy, Σy²)``:
+    ``(y, r, Σy, Σy²)``."""
+    return _unit(x, a, b, skip, dwk, pwk, True, dilation, True)

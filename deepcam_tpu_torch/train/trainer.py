@@ -1,4 +1,4 @@
-"""Training step (counterpart of ``deepcam_tpu/train/trainer.py``).
+"""Training and eval steps (counterpart of ``deepcam_tpu/train/trainer.py``).
 
 One device.  The JAX step is a pure function of an immutable state; here
 the state holds the model and its optimizer, and a step updates both IN
@@ -17,7 +17,7 @@ import torch
 
 from ..ops.classify import argmax_channels
 from .losses import weighted_ce_loss
-from .metrics import compute_score
+from .metrics import compute_score, per_sample_iou
 
 
 @dataclass
@@ -60,3 +60,30 @@ def make_train_step(class_weights: Sequence[float], fpw_1: float = 0.0,
         return state, metrics
 
     return step_fn
+
+
+def make_eval_step(class_weights: Sequence[float], fpw_1: float = 0.0,
+                   fpw_2: float = 0.0):
+    """Returns ``eval_fn(state, x, y, valid) -> (count, loss_sum, iou_sum)``.
+
+    One entry per sample, as the reference's batch-1 validation: each
+    sample's pixel-mean weighted CE and its own mean IoU, summed over the
+    samples whose ``valid`` entry is 1 (a {0, 1} mask of shape (N,), so a
+    padded batch counts each real sample once); ``count`` is the number of
+    valid samples.  The model runs in eval mode on full-resolution logits,
+    without gradients.  All three are fp32 scalar tensors on the device.
+    """
+    weights = tuple(float(w) for w in class_weights)
+
+    def eval_fn(state: TrainState, x: torch.Tensor, y: torch.Tensor,
+                valid: torch.Tensor):
+        state.model.eval()
+        with torch.no_grad():
+            logits = state.model(x)
+            losses = torch.stack([weighted_ce_loss(lg, lb, weights, fpw_1, fpw_2)
+                                  for lg, lb in zip(logits, y)])
+            ious = per_sample_iou(argmax_channels(logits), y, logits.shape[-1])
+            v = valid.float()
+            return v.sum(), (losses * v).sum(), (ious * v).sum()
+
+    return eval_fn

@@ -14,7 +14,8 @@ import torch
 from deepcam_tpu.models import layers as jl
 from deepcam_tpu_torch.models import layers as tl
 from deepcam_tpu_torch.tools.weights import CONV_PERM, CONVT_PERM
-from tests.torch_port_ref import jax_base_config
+from tests.torch_port_ref import jax_base_config, jax_default_config
+from tests.torch_port_ref import release_memory  # noqa: F401  (autouse)
 
 
 def _nchw(a):
@@ -213,6 +214,125 @@ def test_xception_block_train_matches_jax(in_ch, out_ch, kw):
     _, port_stats = state_dict_to_jax(block, block.state_dict())
     assert_trees_close(port_stats, stats_j, 1e-5, "batch_stats")
     grads, _ = state_dict_to_jax(block, {k: p.grad for k, p in block.named_parameters()})
+    assert_trees_close(grads, gp, 1e-4, "param grads")
+    assert_trees_close({"x": _nhwc(xt.grad)}, {"x": gx}, 1e-4, "dx")
+
+
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("with_stats", [False, True])
+def test_batchnorm_fold_and_stats_match_jax(fold, with_stats):
+    """``fold=True`` returns the apply's (a, b) instead of applying it;
+    ``stats=(Σx, Σx²)`` gives the batch statistics without a pass over x.
+    Train mode: the output (or a and b), the running statistics and the
+    gradients of x (through the statistics' producer), scale and bias."""
+    rng = np.random.RandomState(7)
+    x = (1.5 * rng.randn(2, 6, 5, 8) - 0.3).astype(np.float32)
+    ct = rng.randn(2, 6, 5, 8).astype(np.float32)
+    ca, cb = rng.randn(8).astype(np.float32), rng.randn(8).astype(np.float32)
+    params = {"scale": rng.rand(8).astype(np.float32) + 0.5,
+              "bias": rng.randn(8).astype(np.float32)}
+    stats = {"mean": rng.randn(8).astype(np.float32),
+             "var": rng.rand(8).astype(np.float32) + 0.5}
+    jbn = jl.BatchNorm2d(dtype=jnp.float32)
+
+    def f(params, x):
+        st = ((jnp.sum(x, axis=(0, 1, 2)), jnp.sum(x * x, axis=(0, 1, 2)))
+              if with_stats else None)
+        out, upd = jbn.apply({"params": params, "batch_stats": stats}, x, train=True,
+                             fold=fold, stats=st, mutable=["batch_stats"])
+        loss = jnp.sum(out[0] * ca) + jnp.sum(out[1] * cb) if fold else jnp.sum(out * ct)
+        return loss, (out, upd["batch_stats"])
+
+    (gp, gx), (out_j, new_stats) = jax.grad(f, argnums=(0, 1), has_aux=True)(params, x)
+
+    bn = tl.BatchNorm2d(8)
+    bn.load_state_dict({"weight": torch.from_numpy(params["scale"]),
+                        "bias": torch.from_numpy(params["bias"]),
+                        "running_mean": torch.from_numpy(stats["mean"]),
+                        "running_var": torch.from_numpy(stats["var"])})
+    xt = _nchw(x)
+    st = (xt.sum((0, 2, 3)), (xt * xt).sum((0, 2, 3))) if with_stats else None
+    out = bn.train()(xt, fold=fold, stats=st)
+    if fold:
+        (out[0] * torch.from_numpy(ca) + out[1] * torch.from_numpy(cb)).sum().backward()
+        _close(out[0].detach().numpy(), out_j[0], 1e-5, "a")
+        _close(out[1].detach().numpy(), out_j[1], 1e-5, "b")
+    else:
+        (out * _nchw(ct).detach()).sum().backward()
+        _close(_nhwc(out), out_j, 1e-5, "y")
+    _close(bn.running_mean.numpy(), new_stats["mean"], 1e-5, "running mean")
+    _close(bn.running_var.numpy(), new_stats["var"], 1e-5, "running var")
+    _close(_nhwc(xt.grad), gx, 1e-4, "dx")
+    _close(bn.weight.grad.numpy(), gp["scale"], 1e-4, "d scale")
+    _close(bn.bias.grad.numpy(), gp["bias"], 1e-4, "d bias")
+
+
+def test_xception_block_pair_boundary_matches_jax():
+    """Two middle-flow blocks joined by the boundary fold (the first emits
+    its pending triple, the second's unit 0 consumes it), train mode, the
+    port's default configuration against the JAX default configuration
+    with the Pallas kernels in interpret mode: every form of the train step
+    (stats, affine_stats, boundary_stats) in its place.  Output, running
+    statistics, the gradient of the input and of every parameter within
+    1e-4 of each leaf's largest entry (192 values per BN channel: the
+    well-conditioned block level)."""
+    import flax.linen as nn
+
+    from deepcam_tpu.models.xception import XceptionBlock as JaxBlock
+    from deepcam_tpu_torch.models.xception import XceptionBlock
+    from deepcam_tpu_torch.tools.weights import load_jax_variables, state_dict_to_jax
+    from tests.torch_port_ref import assert_trees_close
+
+    c = 16
+
+    class JaxPair(nn.Module):
+        @nn.compact
+        def __call__(self, x, train):
+            y, ab, skip = JaxBlock(c, reps=3, dtype=jnp.float32, name="block4")(
+                x, train, emit_boundary=True)
+            return JaxBlock(c, reps=3, dtype=jnp.float32, name="block5")(
+                y, train, boundary_in=(ab, skip))
+
+    class Pair(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            gen = torch.Generator().manual_seed(0)
+            self.block4 = XceptionBlock(c, c, 3, gen=gen)
+            self.block5 = XceptionBlock(c, c, 3, gen=gen)
+
+        def forward(self, x):
+            y, ab, skip = self.block4(x, emit_boundary=True)
+            return self.block5(y, boundary_in=(ab, skip))
+
+    rng = np.random.RandomState(8)
+    x = (rng.randn(2, 8, 12, c) + 0.3).astype(np.float32)
+    ct = rng.randn(2, 8, 12, c).astype(np.float32)
+    jpair = JaxPair()
+    with jax_default_config("fused"):
+        # jitted: the interpret-mode kernels compile once instead of
+        # running op by op
+        variables = jax.jit(lambda r: jpair.init(r, x, train=False))(jax.random.PRNGKey(6))
+        stats = jax.tree_util.tree_map(
+            lambda a: jnp.asarray(rng.rand(*a.shape).astype(np.float32) + 0.5),
+            variables["batch_stats"])
+
+        def f(params, x):
+            y, upd = jpair.apply({"params": params, "batch_stats": stats}, x, train=True,
+                                 mutable=["batch_stats"])
+            return jnp.sum(y * ct), (y, upd["batch_stats"])
+
+        (gp, gx), (y_j, stats_j) = jax.jit(jax.grad(f, argnums=(0, 1), has_aux=True))(
+            variables["params"], x)
+
+    pair = Pair()
+    load_jax_variables(pair, variables["params"], stats)
+    xt = _nchw(x)
+    y = pair.train()(xt)
+    (y * _nchw(ct).detach()).sum().backward()
+    assert_trees_close({"y": _nhwc(y)}, {"y": y_j}, 1e-4, "y")
+    _, port_stats = state_dict_to_jax(pair, pair.state_dict())
+    assert_trees_close(port_stats, stats_j, 1e-4, "batch_stats")
+    grads, _ = state_dict_to_jax(pair, {k: p.grad for k, p in pair.named_parameters()})
     assert_trees_close(grads, gp, 1e-4, "param grads")
     assert_trees_close({"x": _nhwc(xt.grad)}, {"x": gx}, 1e-4, "dx")
 

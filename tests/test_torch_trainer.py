@@ -3,8 +3,9 @@ package, on the CPU.
 
 The loss, the IoU score and the argmax agree to fp32 noise (1e-6).  AdamW
 is held to ``optax.adamw`` update by update (1e-6).  Two train steps of
-``make_train_step`` run on both stacks from the same weights and batches
-(the JAX step on a one-device mesh, in the port's configuration).
+``make_train_step`` and one eval step of ``make_eval_step`` run on both
+stacks from the same weights and batches (the JAX steps on a one-device
+mesh, in the JAX default configuration, which is the port's).
 """
 
 import jax
@@ -21,10 +22,11 @@ from deepcam_tpu_torch.models.deeplab import DeepLabv3plus
 from deepcam_tpu_torch.ops.classify import argmax_channels
 from deepcam_tpu_torch.tools.weights import load_jax_variables, state_dict_to_jax
 from deepcam_tpu_torch.train import losses as tl
-from deepcam_tpu_torch.train.metrics import compute_score
+from deepcam_tpu_torch.train.metrics import compute_score, per_sample_iou
 from deepcam_tpu_torch.train.optim import build_optimizer
-from deepcam_tpu_torch.train.trainer import create_train_state, make_train_step
-from tests.torch_port_ref import flatten, jax_base_config
+from deepcam_tpu_torch.train.trainer import create_train_state, make_eval_step, make_train_step
+from tests.torch_port_ref import flatten, jax_default_config, port_variables
+from tests.torch_port_ref import release_memory  # noqa: F401  (autouse)
 
 LR, EPS, WD = 1e-3, 1e-8, 1e-2
 
@@ -58,6 +60,19 @@ def test_compute_score_and_argmax_match_jax():
     # every class absent from both: each empty union scores 1.0
     zeros = torch.zeros(2, 4, 4, dtype=torch.int32)
     assert float(compute_score(zeros, zeros, 3)) == 1.0
+
+
+def test_per_sample_iou_matches_jax():
+    rng = np.random.RandomState(4)
+    preds = rng.randint(0, 3, size=(4, 8, 12)).astype(np.int32)
+    labels = rng.randint(0, 3, size=(4, 8, 12)).astype(np.int32)
+    labels[1] = preds[1]           # a perfect sample
+    labels[2][labels[2] == 2] = 0  # class 2 absent from the labels
+    preds[3][:] = 0                # one class predicted everywhere
+    want = np.asarray(jmet.per_sample_iou(jnp.asarray(preds), jnp.asarray(labels), 3))
+    got = per_sample_iou(torch.from_numpy(preds), torch.from_numpy(labels), 3).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    assert got[1] == 1.0
 
 
 def test_adamw_matches_optax():
@@ -101,12 +116,10 @@ def _two_steps():
     nudged = [((x * (1 + 1e-7 * rng.randn(*x.shape))).astype(np.float32), y)
               for x, y in batches]
     weights = list(jl.class_weights())
-    with jax_base_config():
+    with jax_default_config():
         jm = JaxDeepLab(n_classes=3, dtype=jnp.float32)
-        variables = jax.jit(lambda r: jm.init(r, jnp.zeros((1, 32, 48, 16)), train=False))(
-            jax.random.PRNGKey(21))
         # host copies: the JAX step donates (and so deletes) its state buffers
-        variables = jax.tree_util.tree_map(np.asarray, variables)
+        variables = port_variables(21)
         mesh = meshlib.make_mesh(devices=jax.devices()[:1])
         tx = jax_build_optimizer("AdamW", LR, eps=EPS, weight_decay=WD)
         step = jax_make_step(jm, tx, weights, mesh, fpw_1=jl.FPW_1, fpw_2=jl.FPW_2)
@@ -176,3 +189,42 @@ def test_two_train_steps_match_jax():
     port, nudge = _leaf_errs(port_s, ref_s), _leaf_errs(nud_s, port_s)
     assert np.median(port) <= 2 * np.median(nudge)
     assert port.max() <= 2 * nudge.max()
+
+
+def test_eval_step_matches_jax():
+    """One eval step on both stacks from the same weights (the JAX step on a
+    one-device mesh, full-resolution logits) on a batch of 3 whose second
+    sample is masked out: the count exactly, the summed per-sample loss
+    within 1e-5 and the summed per-sample IoU within 1e-6."""
+    from deepcam_tpu.core import mesh as meshlib
+    from deepcam_tpu.models.deeplab import DeepLabv3plus as JaxDeepLab
+    from deepcam_tpu.train.optim import build_optimizer as jax_build_optimizer
+    from deepcam_tpu.train.trainer import create_train_state as jax_create_state
+    from deepcam_tpu.train.trainer import make_eval_step as jax_make_eval
+
+    rng = np.random.RandomState(5)
+    x = rng.rand(3, 32, 48, 16).astype(np.float32)
+    y = rng.randint(0, 3, size=(3, 32, 48)).astype(np.int32)
+    valid = np.array([1, 0, 1], np.int32)
+    weights = list(jl.class_weights())
+    with jax_default_config():
+        jm = JaxDeepLab(n_classes=3, dtype=jnp.float32)
+        variables = port_variables(22)
+        mesh = meshlib.make_mesh(devices=jax.devices()[:1])
+        tx = jax_build_optimizer("AdamW", LR, eps=EPS, weight_decay=WD)
+        state = jax.device_put(jax_create_state(jm, variables, tx), meshlib.replicated(mesh))
+        eval_fn = jax_make_eval(jm, weights, mesh, fpw_1=jl.FPW_1, fpw_2=jl.FPW_2)
+        want = [float(v) for v in eval_fn(state, jnp.asarray(x), jnp.asarray(y),
+                                           jnp.asarray(valid))]
+
+    model = DeepLabv3plus(3, dtype=torch.float32, device="cpu")
+    load_jax_variables(model, variables["params"], variables["batch_stats"])
+    opt = build_optimizer("AdamW", model.parameters(), LR, eps=EPS, weight_decay=WD)
+    pstate = create_train_state(model, opt)
+    peval = make_eval_step(tl.class_weights(), fpw_1=tl.FPW_1, fpw_2=tl.FPW_2)
+    got = [float(v) for v in peval(pstate, torch.from_numpy(x), torch.from_numpy(y),
+                                   torch.from_numpy(valid))]
+    assert got[0] == want[0] == 2.0
+    assert abs(got[1] - want[1]) <= 1e-5 * abs(want[1]), (got, want)
+    assert abs(got[2] - want[2]) <= 1e-6, (got, want)
+    assert pstate.step == 0 and not model.training

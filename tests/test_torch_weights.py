@@ -9,7 +9,8 @@ import torch
 
 from deepcam_tpu_torch.models.deeplab import DeepLabv3plus
 from deepcam_tpu_torch.tools import weights
-from tests.torch_port_ref import flatten, jax_base_config
+from tests.torch_port_ref import flatten, jax_base_config, jax_default_config
+from tests.torch_port_ref import release_memory  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")
@@ -94,3 +95,23 @@ def test_bridge_raises_on_unassigned(pair):
             weights.jax_to_state_dict(model, params, stats)
     finally:
         del model.extra
+
+
+def test_bridge_default_config_tree(pair):
+    """The JAX default configuration (BN fold, kernel statistics, boundary
+    fold) declares the same parameter tree as the configuration the bridge
+    was written against, so the bridge needs no change for it and fills
+    every tensor of the port's default model."""
+    from deepcam_tpu.models.deeplab import DeepLabv3plus as JaxDeepLab
+
+    model, params, stats = pair
+    with jax_default_config():
+        jm = JaxDeepLab(n_classes=3, dtype=jnp.float32)
+        shapes = jax.eval_shape(lambda r: jm.init(r, jnp.zeros((1, 32, 48, 16)), train=False),
+                                jax.random.PRNGKey(0))
+    zeros = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32), shapes)
+    for coll, want in (("params", params), ("batch_stats", stats)):
+        shape_of = lambda tree: {k: v.shape for k, v in flatten(tree).items()}  # noqa: E731
+        assert shape_of(zeros[coll]) == shape_of(want), coll
+    sd = weights.jax_to_state_dict(model, zeros["params"], zeros["batch_stats"])
+    assert sorted(sd) == sorted(model.state_dict())
