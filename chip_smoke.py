@@ -12,7 +12,9 @@ otherwise.  Phases, each printing JSON lines:
 
 1. device  — the card's name and power limit (nvidia-smi); TF32 off for
    fp32 matmuls and convs, so the plain versions run in full fp32.
-2. build   — builds the kernels (one nvcc per source, in parallel).
+2. build   — builds the kernels (one nvcc per source, in parallel), and
+   reports each kernel's registers, static shared memory and spills from
+   the ``-Xptxas -v`` logs.
 3. kernels — each form of the unit against its plain PyTorch version on the
    same bf16 inputs, at the shapes where the main path runs it (batch 4):
    the base form at the entry, middle-flow and exit shapes, stats at the
@@ -25,7 +27,11 @@ otherwise.  Phases, each printing JSON lines:
    version's; d and r bit-exact.  Median times of the kernel,
    the plain version and a library yardstick (elementwise ops, cuDNN
    depthwise, torch.matmul, torch.sum; timed here only), with the card's
-   bound for the same work.
+   bound for the same work, and the forward's and backward's plans (tile,
+   ring stages, blocks per SM, waves).  Then the archived probe's counterpart: the row-window
+   copy driven once through its entry at the probe's shape (its launch
+   counted), held bit-exact to its plain version, and timed beside
+   torch.index_select.
 4. units   — one full-resolution training step in which every one of the
    60 fused units holds all its kernel outputs to the plain version on the
    same inputs, with the tolerances of phase 3: every unit shape and form
@@ -58,6 +64,11 @@ otherwise.  Phases, each printing JSON lines:
    weighted-CE loss and the gradient of every parameter (PARITY_TOL);
    against its fp32 run the logits and loss (FP32_TOL).  A coarse gate:
    through ~80 layers bf16 rounding alone moves the gradients by ~15%.
+9. split   — at the affine_stats middle and exit shapes and the stats
+   entry shape, each launch of both kernels timed on its own; and one
+   default-configuration training step (batch 4, after a warm-up) with the
+   card's time by kernel.  Both with torch.profiler, and last: once the
+   profiler has run, launches stay traced and slower.
 
 Then the ``kernels`` JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script then
@@ -66,6 +77,7 @@ exits non-zero and prints no result.
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -93,6 +105,11 @@ KERNEL_CASES = [
 ]
 # 32 of the 60 units of a train step run this form at this shape
 HEADLINE = ("affine_stats", "middle_728x728_48x72")
+# cases whose launches are also timed one by one (torch.profiler)
+SPLIT_CASES = {HEADLINE, ("affine_stats", "exit_1536x2048_48x72_d2"),
+               ("stats", "entry_64x128_384x576")}
+KERNEL_NAMES = ("sepconv_fwd_kernel", "dd_kernel", "dx_ddw_kernel", "dpw_kernel",
+                "reduce_kernel", "row_windows_kernel")
 STEP_BATCH = 4
 WARMUP_STEPS, TIMED_STEPS = 1, 3
 BASE_TIMED_STEPS = 2
@@ -177,6 +194,55 @@ def time_ms(fn, reps, flush):
     return times[len(times) // 2]
 
 
+def launch_split(fn, reps, flush):
+    """Device ms per call of each of the port's CUDA kernels that ``fn``
+    launches, with their launches per call, from torch.profiler over
+    ``reps`` calls (the L2 flushed before each); None where the profiler
+    shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+        for name in KERNEL_NAMES:
+            if name in e.key and us:
+                ms, n = split.get(name, (0.0, 0.0))
+                split[name] = (ms + us / 1e3 / reps, n + e.count / reps)
+    return {k: {"ms": ms, "launches": n} for k, (ms, n) in split.items()} or None
+
+
+def ptxas_report(build):
+    """Registers, shared memory and spills of each compiled kernel, from the
+    ``-Xptxas -v`` logs that ops/build.py keeps beside each library."""
+    report, name = {}, None
+    for log in sorted(build.BUILD_DIR.glob("*.log")):
+        for line in log.read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                name = m.group(1)
+                continue
+            m = re.search(r"Used (\d+) registers", line)
+            if name and m:
+                smem = re.search(r"(\d+) bytes smem", line)
+                report.setdefault(name, {})["registers"] = int(m.group(1))
+                report[name]["static_smem"] = int(smem.group(1)) if smem else 0
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if name and m:
+                report.setdefault(name, {})["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(report), capture_output=True,
+                               text=True, timeout=60, check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        names = list(report)
+    return {re.sub(r"\(.*", "", nice): v for nice, v in zip(names, report.values())}
+
+
 def bound(nbytes, ops_by_peak):
     """Least time of the card for the work: the larger of the byte time
     and the operation time (each type of operation at its own peak)."""
@@ -251,6 +317,7 @@ def kernel_phase(fs):
     gen = torch.Generator(device="cuda").manual_seed(1234)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     rows = {"sepconv_fwd": [], "sepconv_bwd": []}
+    splits = {}
     for form, name, n, h, w, c, f, pre_relu, dil in KERNEL_CASES:
         def rnd(*shape, scale=1.0, shift=0.0):
             return (scale * torch.randn(*shape, generator=gen, device="cuda")
@@ -342,6 +409,11 @@ def kernel_phase(fs):
 
         t["bwd_lib"] = time_ms(lib_bwd, reps, flush)
         fwd_b, bwd_b = unit_bounds(form, p, c, f)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        plans = {"fwd": fs.fwd_plan(n, h, w, c, f, dil, sms)._asdict(),
+                 "bwd": fs.bwd_plan(n, h, w, c, f, dil, stats, sms)._asdict()}
+        if (form, name) in SPLIT_CASES:  # timed launch by launch at the end
+            splits[form, name] = (n, h, w, c, f, pre_relu, dil, reps)
         fwd_outs = ["y"] + (["s1", "s2"] if stats else [])
         bwd_outs = ["dx", "ddw", "dpw"] + (["da", "db"] if affine else []) + (
             ["dskip"] if with_skip else [])
@@ -353,11 +425,107 @@ def kernel_phase(fs):
                 "max_abs_err": max(errs.get(o + "_abs", 0.0) for o in outs),
                 "max_rel_err": max(errs[o] for o in outs)})
         emit({"phase": "kernels", "form": form, "shape": name, "times_ms": t,
-              "bound_ms": {"fwd": fwd_b, "bwd": bwd_b},
+              "bound_ms": {"fwd": fwd_b, "bwd": bwd_b}, "plan": plans,
               "errors_rel_to_max": {k: v for k, v in errs.items() if not k.endswith("_abs")}})
         del x, g, out, ref, got, want, graphs, kw, bkw, base_leaves
         torch.cuda.empty_cache()
-    return rows
+    return rows, splits
+
+
+def step_profile(fs, step_fn, state, x, y):
+    """One training step under torch.profiler: the card's busy time by
+    kernel (the 25 largest, and the fused units' share)."""
+    from torch.profiler import ProfilerActivity, profile
+    state, _ = step_fn(state, x, y)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(state, x, y)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_kernel = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+        if us and str(getattr(e, "device_type", "")).endswith("CUDA"):
+            by_kernel[e.key[:120]] = (us / 1e3, e.count)
+    busy = sum(ms for ms, _ in by_kernel.values())
+    fused = sum(ms for k, (ms, _) in by_kernel.items()
+                if any(n in k for n in KERNEL_NAMES[:5]))
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:25]
+    return {"wall_ms_profiled": wall * 1e3, "device_busy_ms": busy,
+            "fused_sepconv_ms": fused, "top": [[k, ms, n] for k, (ms, n) in top]}
+
+
+def split_phase(fs, rows, splits):
+    """Each launch of both kernels timed on its own (torch.profiler) at
+    SPLIT_CASES, into their rows.  Run last: after the profiler has run,
+    launches stay traced, which would slow the timed steps."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    for (form, name), (n, h, w, c, f, pre_relu, dil, reps) in splits.items():
+        def rnd(*shape, scale=1.0, shift=0.0):
+            return (scale * torch.randn(*shape, generator=gen, device="cuda")
+                    + shift).bfloat16()
+
+        affine, with_skip, stats = form_operands(form)
+        x, g = rnd(n, h, w, c), rnd(n, h, w, f)
+        dwk, pwk = rnd(3, 3, c, scale=1 / 3), rnd(c, f, scale=c ** -0.5)
+        kw = dict(a=rnd(c, scale=0.2, shift=1.0), b=rnd(c, scale=0.1)) if affine else {}
+        if with_skip:
+            kw["skip"] = rnd(n, h, w, c)
+        out = fs.sepconv_fwd(x, dwk, pwk, pre_relu, dil, True, emit_stats=stats, **kw)
+        bkw = dict(kw, gr=rnd(n, h, w, c)) if with_skip else dict(kw)
+        if stats:
+            bkw.update(y=out.y, gs1=torch.randn(f, generator=gen, device="cuda"),
+                       gs2=torch.randn(f, generator=gen, device="cuda"))
+        split = {
+            "fwd": launch_split(lambda: fs.sepconv_fwd(x, dwk, pwk, pre_relu, dil, True,
+                                                       emit_stats=stats, **kw), reps, flush),
+            "bwd": launch_split(lambda: fs.sepconv_bwd(x, g, dwk, pwk, out.d, pre_relu, dil,
+                                                       **bkw), reps, flush)}
+        for kname, key in (("sepconv_fwd", "fwd"), ("sepconv_bwd", "bwd")):
+            row = next(r for r in rows[kname] if (r["form"], r["shape"]) == (form, name))
+            row["launch_split"] = split[key]
+        emit({"phase": "split", "form": form, "shape": name, "launch_split_ms": split})
+
+
+def probe_phase(pw):
+    """The archived Mosaic probe's counterpart: its public entry once at
+    the probe's shape, with the counter zeroed just before and read just
+    after; the kernel against its plain version (bit-exact: a copy), and
+    times beside a library yardstick (torch.index_select of the window
+    rows, timed only here)."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    th, d = pw.PROBE_TH, pw.PROBE_D
+    xp = torch.randn(*pw.PROBE_SHAPE, generator=torch.Generator(device="cuda").manual_seed(99),
+                     device="cuda")
+    pw.reset_launches()
+    out = pw.row_windows(xp, th, d)
+    torch.cuda.synchronize()
+    launches = pw.LAUNCHES["row_windows"]
+    check(launches == 1, f"probe: {launches} row_windows launches, want 1")
+    ref = pw.row_windows_plain(xp, th, d)
+    check(torch.equal(out, ref), "probe: the kernel's windows differ from the plain version's")
+    n, rows, w, c = xp.shape
+    t, win = pw.window_count(rows, th, d), th + 2 * d
+    idx = torch.tensor([i * th + r for i in range(t) for r in range(win)], device="cuda")
+
+    def lib():
+        return torch.index_select(xp, 1, idx).view(n, t, win, w, c)
+
+    check(torch.equal(lib(), ref), "probe: the library yardstick differs")
+    times = {"ms": time_ms(lambda: pw.row_windows_kernel(xp, th, d), 30, flush),
+             "plain_ms": time_ms(lambda: pw.row_windows_plain(xp, th, d), 30, flush),
+             "library_ms": time_ms(lib, 30, flush)}
+    b = bound(4 * (xp.numel() + out.numel()), [])
+    row = {"name": "row_windows", "route": "cuda",
+           "source": "deepcam_tpu_torch/ops/csrc/row_windows.cu",
+           "replaces": "analysis/archive/probe_element_window.py:29", "launches": launches,
+           "max_abs_err": (out - ref).abs().max().item(), **times, "bound_ms": b[0],
+           "bound_by": b[1], "shape": list(pw.PROBE_SHAPE), "th": th, "d": d,
+           "path": "the probe's own call (on no training path)"}
+    emit({"phase": "probe", **row})
+    return row
 
 
 def checked_unit_step(fs, step_fn, state, x, y):
@@ -623,6 +791,7 @@ def main():
               file=sys.stderr)
         return 2
     try:
+        from deepcam_tpu_torch.analysis import probe_element_window as pw
         from deepcam_tpu_torch.models import layers
         from deepcam_tpu_torch.models.deeplab import DeepLabv3plus
         from deepcam_tpu_torch.models.xception import XceptionBlock
@@ -652,10 +821,17 @@ def main():
 
     # 2. build
     secs = build.build()
-    emit({"phase": "build", "seconds": secs, "sources": list(build.SOURCES)})
+    emit({"phase": "build", "seconds": secs, "sources": list(build.SOURCES),
+          "ptxas": ptxas_report(build)})
 
-    # 3. every form against its plain version
-    rows = kernel_phase(fs)
+    # 3. every form against its plain version, and the probe's counterpart
+    rows, splits = kernel_phase(fs)
+    probe = probe_phase(pw)
+    # host cost of the kernels' TMA maps: one per forward, four per backward
+    map_us = fs.map_encode_us(torch.empty(8 << 20, dtype=torch.uint8, device="cuda"))
+    emit({"phase": "tensor_maps", "encode_us_per_map": map_us,
+          "maps_per_train_step": UNITS_PER_STEP * 5,
+          "ms_per_train_step": map_us * UNITS_PER_STEP * 5 / 1e3})
 
     # 4. every fused unit of one full-resolution step against the plain version
     batch = STEP_BATCH
@@ -719,7 +895,7 @@ def main():
     emit({"phase": "eval", "batch": batch, "valid": valid.tolist(), "steps": EVAL_STEPS,
           "ms_per_step": eval_ms, "count": count, "loss_mean": loss_sum / count,
           "iou_mean": iou_sum / count, "launches": eval_launches, "forms": eval_forms})
-    del model, opt, state, step_fn, eval_fn, x, y, watched
+    del model, opt, state, eval_fn, x, y, watched
     torch.cuda.empty_cache()
 
     # 7. train-mode middle-flow blocks (one, and two joined by the boundary
@@ -754,6 +930,19 @@ def main():
         for k, tol in tols.items():
             check(par[ref][k] <= tol, f"card vs CPU {ref}: {k} {par[ref][k]} > {tol}")
 
+    # 9. each launch of both kernels on its own, at the headline shapes, and
+    # one profiled training step
+    split_phase(fs, rows, splits)
+    del splits
+    model = DeepLabv3plus(n_classes=3, dtype=torch.bfloat16, device="cuda", seed=333)
+    opt = build_optimizer("AdamW", model.parameters(), 1e-3, eps=1e-8, weight_decay=1e-2)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.rand(batch, 768, 1152, 16, generator=gen, device="cuda").bfloat16()
+    y = torch.randint(0, 3, (batch, 768, 1152), generator=gen, device="cuda")
+    emit({"phase": "step_profile", "batch": batch,
+          **step_profile(fs, step_fn, create_train_state(model, opt), x, y)})
+    del model, opt, x, y
+
     # launches per step by form, over all the form's shapes, as measured
     # in the slice (default configuration) and eval phases
     measured = (("train", slice_default["forms"], steps), ("eval", eval_forms, EVAL_STEPS))
@@ -773,6 +962,7 @@ def main():
             "form_launches_per_step_all_shapes": {
                 step: {form: v / n for form, v in forms[kname].items()}
                 for step, forms, n in measured}})
+    kernels.append(probe)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -177,32 +177,126 @@ def sepconv_bwd_plain(x, g, dwk, pwk, d, pre_relu: bool, dilation: int, *, a=Non
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# pixels per forward block (BM) and partials per first reduction pass
-# (RED_CHUNK), as in csrc/tile_mma.cuh
-_BM = 64
+# As in csrc/tile_mma.cuh: the 64 x 64 bf16 operand box (8 KB) in which the
+# GEMM kernels tile rows and K, the 1024-byte alignment of the swizzled
+# boxes, the shared memory a block may use (alone on an SM, or one of two),
+# and the partials added per first reduction pass.
+_BOX = 64
+_BOX_BYTES = _BOX * _BOX * 2
+_SMEM_ALIGN = 1024
+SMEM_ONE_BLOCK = 232_448
+SMEM_TWO_BLOCKS = 233_472 // 2 - 1024
 _RED_CHUNK = 256
+# forward: output channels per F tile, side of a staged pixel tile, ring
+# stages at most, barrier bytes per stage; the statistics partials of an
+# unstaged pixel tile (one per consumer warp of a warpgroup, 16 rows each;
+# a staged tile adds them in shared memory and writes one)
+FWD_BN = 128
+FWD_TILE = 8
+_FWD_MAX_STAGES = 8
+_BAR_BYTES = 16
+_STAT_ROWS = 4
+
+
+# forward launch modes (FwdMode in csrc/sepconv_fwd.cu)
+UNSTAGED, STAGED_1, STAGED_2, PRELOADED_2 = range(4)
+
+
+class FwdPlan(NamedTuple):
+    bm: int              # pixels per block (GEMM rows)
+    bn: int              # output channels per F tile
+    k_pad: int           # C rounded up to wgmma's depth (16); zeros past C
+    mode: int            # UNSTAGED, or 8 x 8 pixel tiles with h staged in shared
+                         # memory: STAGED_1, STAGED_2 or PRELOADED_2
+    stages: int          # TMA ring stages of pw (preloaded: one per box)
+    blocks_per_sm: int
+    smem_bytes: int      # dynamic shared memory of a block
+    tiles: int           # pixel tiles (blocks)
+    waves: float         # tiles over (SMs x blocks per SM)
+
+
+def fwd_halo_bytes(dilation: int) -> int:
+    """The staged block's buffer, in whole KB: h of the 8 x 8 tile with its
+    halo for one 64-channel chunk, later the two warpgroups' y tiles (64 x
+    72 bf16 each), whichever is larger (as ``fwd_halo_bytes`` in
+    csrc/sepconv_fwd.cu)."""
+    hw = FWD_TILE + 2 * dilation
+    return -(-max(hw * hw * 128, 2 * _BOX * (_BOX + 8) * 2) // _SMEM_ALIGN) * _SMEM_ALIGN
+
+
+def fwd_smem_bytes(c: int, dilation: int, staged: bool, stages: int) -> int:
+    """Shared memory of one forward block: the resident d tile (ceil(C/64)
+    boxes), the halo buffer when staged, ``stages`` ring stages of two pw
+    boxes with their barriers, and the alignment slack (as
+    ``fwd_smem_bytes`` in csrc/sepconv_fwd.cu)."""
+    return (_SMEM_ALIGN + -(-c // _BOX) * _BOX_BYTES
+            + (fwd_halo_bytes(dilation) if staged else 0)
+            + stages * (2 * _BOX_BYTES + _BAR_BYTES))
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_plan(n: int, h: int, w: int, c: int, f: int, dilation: int, sms: int) -> FwdPlan:
+    """Launch plan of the forward for (n, h, w) pixels, C→F on ``sms`` SMs.
+    8 x 8 pixel tiles with h staged in shared memory where the d tile, the
+    halo buffer and two ring stages fit one block, else 64 pixels in a row
+    with the taps read from L1/L2 (C = 1536 at dilation 2).  Staged tiles
+    run two blocks per SM where three ring stages still fit half an SM's
+    shared memory: with every pw box loaded at the start where they all fit
+    (no producer warp), else through a ring; otherwise one block per SM.  A
+    ring has as many stages (at most 8) as fit, at least two."""
+    per_stage = 2 * _BOX_BYTES + _BAR_BYTES
+    staged = fwd_smem_bytes(c, dilation, True, 2) <= SMEM_ONE_BLOCK
+    base = fwd_smem_bytes(c, dilation, staged, 0)
+    boxes = -(-c // _BOX) * -(-f // FWD_BN)
+    if staged and base + 3 * per_stage <= SMEM_TWO_BLOCKS:
+        blocks = 2
+        if boxes <= _FWD_MAX_STAGES and base + boxes * per_stage <= SMEM_TWO_BLOCKS:
+            mode, stages = PRELOADED_2, boxes
+        else:
+            mode, stages = STAGED_2, min(_FWD_MAX_STAGES, (SMEM_TWO_BLOCKS - base) // per_stage)
+    else:
+        blocks, mode = 1, (STAGED_1 if staged else UNSTAGED)
+        stages = min(_FWD_MAX_STAGES, (SMEM_ONE_BLOCK - base) // per_stage)
+        if stages < 2:
+            raise ValueError(f"sepconv forward: C = {c} leaves no room for two stages")
+    tiles = (n * -(-h // FWD_TILE) * -(-w // FWD_TILE) if staged
+             else -(-(n * h * w) // _BOX))
+    return FwdPlan(_BOX, FWD_BN, -(-c // 16) * 16, mode, stages, blocks,
+                   fwd_smem_bytes(c, dilation, staged, stages), tiles,
+                   tiles / (sms * blocks))
 
 
 def _fwd_lib():
     lib = library("sepconv_fwd")
     fn = lib.sepconv_fwd
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 12 + [_I] * 7 + [_P]
+        fn.argtypes = [_P] * 12 + [_I] * 10 + [_P]
         fn.restype = _I
     return fn
+
+
+def map_encode_us(t: torch.Tensor, reps: int = 1000) -> float:
+    """Host microseconds to encode one TMA tensor map (over ``t``'s memory,
+    at least 8 MB on the card), averaged over ``reps``."""
+    fn = library("sepconv_fwd").box_map_encode_us
+    fn.argtypes, fn.restype = [_P, _I], ctypes.c_double
+    us = fn(t.data_ptr(), reps)
+    if us < 0:
+        raise RuntimeError("cuTensorMapEncodeTiled failed")
+    return us
 
 
 def _bwd_lib():
     lib = library("sepconv_bwd")
     fn = lib.sepconv_bwd
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 19 + [_I] * 9 + [ctypes.c_long, _P]
+        fn.argtypes = [_P] * 19 + [_I] * 11 + [ctypes.c_long, _P]
         fn.restype = _I
     return fn
 
 
 def _check(name, t, shape, dtype=torch.bfloat16, device=None):
-    if t.device.type != "cuda" or t.dtype != dtype or tuple(t.shape) != tuple(shape):
+    if not t.is_cuda or t.dtype != dtype or t.shape != shape:
         raise ValueError(f"{name}: want a {dtype} CUDA tensor of shape "
                          f"{tuple(shape)}, got {t.dtype} {t.device} {tuple(t.shape)}")
     if device is not None and t.device != device:
@@ -233,6 +327,11 @@ def _check_unit(x, dwk, pwk, dilation, pre_relu, a, b, skip):
     return n, h, w, c, f
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -251,17 +350,18 @@ def sepconv_fwd(x, dwk, pwk, pre_relu: bool, dilation: int, emit_d: bool, *, a=N
     y = torch.empty((n, h, w, f), dtype=x.dtype, device=dev)
     d = torch.empty_like(x) if emit_d else None
     r = torch.empty_like(x) if skip is not None else None
+    plan = fwd_plan(n, h, w, c, f, dilation, _sm_count(dev.index))
     spart = sscratch = stats = None
-    if emit_stats:
-        nbx = -(-n * h * w // _BM)
-        spart = torch.empty((nbx, 2, f), dtype=torch.float32, device=dev)
-        if nbx > _RED_CHUNK:
-            sscratch = torch.empty((-(-nbx // _RED_CHUNK), 2, f), dtype=torch.float32,
-                                   device=dev)
+    if emit_stats:  # the partials and their scratch in one buffer
+        nparts = (_STAT_ROWS if plan.mode == UNSTAGED else 1) * plan.tiles
+        nscratch = -(-nparts // _RED_CHUNK) if nparts > _RED_CHUNK else 0
+        buf = torch.empty((nparts + nscratch, 2, f), dtype=torch.float32, device=dev)
+        spart, sscratch = buf[:nparts], (buf[nparts:] if nscratch else None)
         stats = torch.empty((2, f), dtype=torch.float32, device=dev)
     rc = _fwd_lib()(x.data_ptr(), dwk.data_ptr(), pwk.data_ptr(), _ptr(a), _ptr(b),
                     _ptr(skip), y.data_ptr(), _ptr(d), _ptr(r), _ptr(spart), _ptr(sscratch),
-                    _ptr(stats), n, h, w, c, f, dilation, int(pre_relu), _stream(x))
+                    _ptr(stats), n, h, w, c, f, dilation, int(pre_relu), plan.tiles,
+                    plan.mode, plan.stages, _stream(x))
     if rc:
         raise RuntimeError(f"sepconv_fwd launch failed: CUDA error {rc}")
     LAUNCHES["sepconv_fwd"] += 1
@@ -269,30 +369,63 @@ def sepconv_fwd(x, dwk, pwk, pre_relu: bool, dilation: int, emit_d: bool, *, a=N
     return FwdOut(y, d, r, stats)
 
 
-# blocks per SM the backward aims for when it splits a reduction
+# blocks per SM the d_pw split aims for, and the cap on its partials
 _BLOCKS_PER_SM = 4
 _PARTIAL_CAP = 64 << 20
+# dx/d_dw: spatial tile (rows x columns), channels per block, most partials
+DX_TILE = (8, 18)
+_DX_CT = 32
+_DX_MAX_PARTS = 256
+
+
+class BwdPlan(NamedTuple):
+    dx_tiles: int        # spatial tiles per dx/d_dw block
+    dx_blocks: int       # dx/d_dw blocks along the pixels (the d_dw partials)
+    dx_smem: int         # its dynamic shared memory
+    dd_stages: int       # ring stages of the dd GEMM
+    dd_smem: int
+    dpw_stages: int      # ring stages of the d_pw GEMM
+    dpw_smem: int
+    splits: int          # d_pw pixel slices (its partials)
+    chunk: int           # pixels per slice, a multiple of 64
+
+
+def gemm_smem_bytes(stages: int, boxes: int) -> int:
+    """Shared memory of a backward GEMM block: ``stages`` ring stages of
+    ``boxes`` 8 KB boxes with their barriers, and the alignment slack (as
+    ``gemm_smem_bytes`` in csrc/sepconv_bwd.cu)."""
+    return _SMEM_ALIGN + stages * (boxes * _BOX_BYTES + _BAR_BYTES)
+
+
+def dx_smem_bytes(dilation: int) -> int:
+    """The dx/d_dw tile with its halo: dd fp32, x and u bf16, per channel."""
+    th, tw = DX_TILE
+    return (th + 2 * dilation) * (tw + 2 * dilation) * _DX_CT * (4 + 2 + 2)
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def bwd_plan(p: int, c: int, f: int, sms: int):
-    """Work split of the backward for p pixels, C→F on a card with ``sms``
-    SMs: (pixels per dx/d_dw block, d_pw slices, pixels per slice).  Keeps
-    the d_pw partials under 64 MB and gives the card about four blocks per
-    SM where the shape allows it."""
-    target = _BLOCKS_PER_SM * sms
-    ctiles = -(-c // 64)
-    ppb = max(256, -(-p * ctiles // target) // 32 * 32)
-    tiles = ctiles * -(-f // 128)
-    splits = max(1, min(-(-target // tiles), -(-p // 32),
+def bwd_plan(n: int, h: int, w: int, c: int, f: int, dilation: int, fold: bool,
+             sms: int) -> BwdPlan:
+    """Work split of the backward for (n, h, w) pixels, C→F, on a card with
+    ``sms`` SMs; ``fold``: the statistics cotangent is folded (the GEMMs
+    also load y).  The dx/d_dw blocks walk enough tiles to keep at most 256
+    d_dw partials; the GEMM rings leave room for two blocks per SM; d_pw
+    splits the pixels in multiples of 64 until the card has about four
+    blocks per SM, with its partials under 64 MB."""
+    p = n * h * w
+    th, tw = DX_TILE
+    ntiles = n * -(-h // th) * -(-w // tw)
+    dx_tiles = -(-ntiles // _DX_MAX_PARTS)
+    dd_boxes, dpw_boxes = (4, 5) if fold else (3, 3)
+    dd_stages, dpw_stages = (3, 2) if fold else (4, 4)
+    tiles = -(-c // _BOX) * -(-f // FWD_BN)
+    splits = max(1, min(-(-_BLOCKS_PER_SM * sms // tiles), -(-p // _BOX),
                         _PARTIAL_CAP // (c * f * 4)))
-    chunk = -(-p // splits // 32) * 32
-    splits = -(-p // chunk)
-    return ppb, splits, chunk
+    chunk = -(-p // splits // _BOX) * _BOX
+    return BwdPlan(dx_tiles, -(-ntiles // dx_tiles), dx_smem_bytes(dilation),
+                   dd_stages, gemm_smem_bytes(dd_stages, dd_boxes),
+                   dpw_stages, gemm_smem_bytes(dpw_stages, dpw_boxes),
+                   -(-p // chunk), chunk)
 
 
 def sepconv_bwd(x, g, dwk, pwk, d, pre_relu: bool, dilation: int, *, a=None, b=None,
@@ -316,22 +449,24 @@ def sepconv_bwd(x, g, dwk, pwk, d, pre_relu: bool, dilation: int, *, a=None, b=N
         _check("gs1", gs1, (f,), torch.float32, device=dev)
         _check("gs2", gs2, (f,), torch.float32, device=dev)
     p = n * h * w
-    ppb, splits, chunk = bwd_plan(p, c, f, _sm_count(dev.index))
-    nblk = -(-p // ppb)
+    plan = bwd_plan(n, h, w, c, f, dilation, y is not None, _sm_count(dev.index))
     rows = 11 if a is not None else 9
     dx = torch.empty_like(x)
     dskip = torch.empty_like(x) if skip is not None else None
     dwab = torch.empty((rows, c), dtype=torch.float32, device=dev)
     dpw = torch.empty((c, f), dtype=torch.float32, device=dev)
-    dd = torch.empty((p, c), dtype=torch.float32, device=dev)
-    ddw_part = torch.empty((nblk, rows, c), dtype=torch.float32, device=dev)
-    dpw_part = torch.empty((splits, c, f), dtype=torch.float32, device=dev)
+    # scratch in one buffer: dd, the d_dw partials, the d_pw partials (each
+    # a multiple of 8 floats, so every part stays 16-byte aligned)
+    sizes = (p * c, plan.dx_blocks * rows * c, plan.splits * c * f)
+    scratch = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    dd, ddw_part, dpw_part = scratch.split(sizes)
     rc = _bwd_lib()(x.data_ptr(), g.data_ptr(), dwk.data_ptr(), pwk.data_ptr(),
                     d.data_ptr(), _ptr(a), _ptr(b), _ptr(skip), _ptr(gr), _ptr(y),
                     _ptr(gs1), _ptr(gs2), dx.data_ptr(), _ptr(dskip), dwab.data_ptr(),
                     dpw.data_ptr(), dd.data_ptr(), ddw_part.data_ptr(),
-                    dpw_part.data_ptr(), n, h, w, c, f, dilation, int(pre_relu), ppb,
-                    splits, chunk, _stream(x))
+                    dpw_part.data_ptr(), n, h, w, c, f, dilation, int(pre_relu),
+                    plan.dx_tiles, plan.dd_stages, plan.dpw_stages, plan.splits, plan.chunk,
+                    _stream(x))
     if rc:
         raise RuntimeError(f"sepconv_bwd launch failed: CUDA error {rc}")
     LAUNCHES["sepconv_bwd"] += 1

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from deepcam_tpu_torch.analysis import probe_element_window as pw
 from deepcam_tpu_torch.ops import fused_sepconv as fs
 
 
@@ -63,19 +64,88 @@ def test_form_names():
         (True, False, True), (True, True, False), (True, True, True))] == list(fs.FORMS)
 
 
-@pytest.mark.parametrize("p,c,f", [
-    (4 * 384 * 576, 64, 128),
-    (4 * 48 * 72, 728, 728),
-    (4 * 48 * 72, 1536, 2048),
-    (2 * 4 * 6, 1024, 1536),
-])
+# Every fused unit shape of the full-resolution train step at batch 4
+# (N, H, W, C, F, dilation): entry, middle, block20 and exit flows.
+TRAIN_UNITS = [
+    (4, 384, 576, 64, 128, 1), (4, 384, 576, 128, 128, 1),
+    (4, 192, 288, 128, 256, 1), (4, 192, 288, 256, 256, 1),
+    (4, 96, 144, 256, 728, 1), (4, 96, 144, 728, 728, 1),
+    (4, 48, 72, 728, 728, 1), (4, 48, 72, 728, 1024, 1), (4, 48, 72, 1024, 1024, 1),
+    (4, 48, 72, 1024, 1536, 2), (4, 48, 72, 1536, 1536, 2), (4, 48, 72, 1536, 2048, 2),
+]
+# ragged shapes: C, F off multiples of 16 or 64, P off a multiple of 64
+RAGGED_UNITS = [(1, 9, 13, 24, 40, 1), (1, 7, 11, 728, 88, 1), (2, 5, 9, 40, 728, 2)]
+
+
+@pytest.mark.parametrize("n,h,w,c,f,dil", TRAIN_UNITS + RAGGED_UNITS)
 @pytest.mark.parametrize("sms", [132, 114])  # H100 SXM, H100 PCIe
-def test_bwd_plan_bounds_partials(p, c, f, sms):
-    ppb, splits, chunk = fs.bwd_plan(p, c, f, sms)
-    assert ppb >= 256 and ppb % 32 == 0
-    assert chunk % 32 == 0 and splits * chunk >= p > (splits - 1) * chunk
-    assert splits * c * f * 4 <= 64 << 20
-    assert -(-p // ppb) * 9 * c * 4 <= 64 << 20
+def test_fwd_plan_fits(n, h, w, c, f, dil, sms):
+    """The forward's plan: the resident d tile, the halo buffer (staged)
+    and at least two ring stages fit one block's shared memory (half an
+    SM's with two blocks per SM); K is C padded to wgmma's depth of 16; the
+    pixel tiles cover every pixel."""
+    p = n * h * w
+    plan = fs.fwd_plan(n, h, w, c, f, dil, sms)
+    limit = fs.SMEM_TWO_BLOCKS if plan.blocks_per_sm == 2 else fs.SMEM_ONE_BLOCK
+    staged = plan.mode != fs.UNSTAGED
+    assert plan.smem_bytes == fs.fwd_smem_bytes(c, dil, staged, plan.stages) <= limit
+    boxes = -(-c // 64) * -(-f // 128)
+    if plan.mode == fs.PRELOADED_2:  # a stage for every box of pw
+        assert plan.stages == boxes <= 8
+    else:
+        assert 2 <= plan.stages <= 8
+    assert plan.blocks_per_sm == (2 if plan.mode >= fs.STAGED_2 else 1)
+    # the d tile holds whole 64-channel boxes: every K step of 16 it feeds
+    # wgmma lies inside it, the channels from C up written as zeros
+    assert plan.k_pad % 16 == 0 and c <= plan.k_pad < c + 16
+    assert plan.k_pad <= -(-c // 64) * 64
+    assert plan.bm == 64 == fs.FWD_TILE ** 2
+    if staged:  # 8 x 8 tiles of each image
+        assert plan.tiles == n * -(-h // 8) * -(-w // 8)
+        assert fs.fwd_halo_bytes(dil) >= max((8 + 2 * dil) ** 2 * 128, 2 * 64 * 72 * 2)
+    else:  # 64 pixels in a row of N*H*W
+        assert plan.tiles * 64 >= p > (plan.tiles - 1) * 64
+    assert plan.waves == pytest.approx(plan.tiles / (sms * plan.blocks_per_sm))
+    assert -(-f // plan.bn) * plan.bn >= f
+
+
+def test_fwd_plan_at_the_train_shapes():
+    """The plans written down in PERF.md, by (C, F, dilation): h staged in
+    8 x 8 tiles everywhere but C = 1536; two blocks per SM up to C = 256,
+    with pw preloaded up to 128→256; ring stages 3 at C = 256, 6 at 728, 4
+    at 1024, 2 at 1536."""
+    want = {(64, 128, 1): (fs.PRELOADED_2, 1), (128, 128, 1): (fs.PRELOADED_2, 2),
+            (128, 256, 1): (fs.PRELOADED_2, 4), (256, 256, 1): (fs.STAGED_2, 3),
+            (256, 728, 1): (fs.STAGED_2, 3), (728, 728, 1): (fs.STAGED_1, 6),
+            (728, 1024, 1): (fs.STAGED_1, 6), (1024, 1024, 1): (fs.STAGED_1, 4),
+            (1024, 1536, 2): (fs.STAGED_1, 4), (1536, 1536, 2): (fs.UNSTAGED, 2),
+            (1536, 2048, 2): (fs.UNSTAGED, 2)}
+    for n, h, w, c, f, dil in TRAIN_UNITS:
+        plan = fs.fwd_plan(n, h, w, c, f, dil, 132)
+        assert (plan.mode, plan.stages) == want[c, f, dil], (c, f)
+    assert fs.fwd_plan(4, 48, 72, 728, 728, 1, 132).waves == pytest.approx(216 / 132)
+
+
+@pytest.mark.parametrize("n,h,w,c,f,dil", TRAIN_UNITS + RAGGED_UNITS + [(2, 4, 6, 1024, 1536, 1)])
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("sms", [132, 114])  # H100 SXM, H100 PCIe
+def test_bwd_plan_bounds_partials(n, h, w, c, f, dil, fold, sms):
+    plan = fs.bwd_plan(n, h, w, c, f, dil, fold, sms)
+    p = n * h * w
+    # d_pw: slices of whole 64-pixel boxes cover P; partials under 64 MB
+    assert plan.chunk % 64 == 0 and plan.splits * plan.chunk >= p > (plan.splits - 1) * plan.chunk
+    assert plan.splits * c * f * 4 <= 64 << 20
+    # dx/d_dw: at most 256 partials, and the tiles cover the image
+    th, tw = fs.DX_TILE
+    ntiles = n * -(-h // th) * -(-w // tw)
+    assert plan.dx_blocks <= 256 and plan.dx_blocks * plan.dx_tiles >= ntiles
+    assert plan.dx_blocks * 11 * c * 4 <= 64 << 20
+    # two blocks per SM of each kernel fit the SM's shared memory
+    for smem in (plan.dx_smem, plan.dd_smem, plan.dpw_smem):
+        assert smem <= fs.SMEM_TWO_BLOCKS
+    assert plan.dd_stages >= 3 and plan.dpw_stages >= 2
+    assert plan.dd_smem == fs.gemm_smem_bytes(plan.dd_stages, 4 if fold else 3)
+    assert plan.dpw_smem == fs.gemm_smem_bytes(plan.dpw_stages, 5 if fold else 3)
 
 
 @pytest.mark.gpu
@@ -182,3 +252,68 @@ def test_forms_match_plain_on_card(form, n, h, w, c, f, pre_relu, dilation):
     if stats:
         again_fwd = fs.sepconv_fwd(x, dwk, pwk, pre_relu, dilation, False, emit_stats=True, **kw)
         assert torch.equal(out.stats, again_fwd.stats)
+
+
+@pytest.mark.gpu
+def test_row_windows_match_plain_on_card():
+    """The row-window copy (the archived probe's counterpart) against its
+    plain version at the probe's shape and a ragged one: bit-exact."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for shape, th, d in ((pw.PROBE_SHAPE, pw.PROBE_TH, pw.PROBE_D), ((1, 13, 5, 8), 3, 2)):
+        xp = torch.randn(*shape, generator=torch.Generator().manual_seed(2)).cuda()
+        got = pw.row_windows(xp, th, d)
+        torch.cuda.synchronize()
+        assert torch.equal(got, pw.row_windows_plain(xp, th, d))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", fs.FORMS)
+@pytest.mark.parametrize("n,h,w,c,f,dil", RAGGED_UNITS)
+def test_ragged_shapes_match_plain_on_card(form, n, h, w, c, f, dil):
+    """The redesigned kernels where C and F are off multiples of 16 and 64
+    (the zero K padding of the d tile, TMA's zero fill past C and F, the
+    ragged last F tile) and P is off a multiple of 64 (masked rows and
+    statistics): every output against the plain version, as CARD_TOL; d and
+    r bit-exact."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return (scale * torch.randn(*shape, generator=gen, device="cuda") + shift).bfloat16()
+
+    affine, skip_on, stats = form not in ("base", "stats"), form.startswith("boundary"), \
+        form.endswith("stats")
+    x, g = rnd(n, h, w, c), rnd(n, h, w, f)
+    dwk, pwk = rnd(3, 3, c, scale=0.3), rnd(c, f, scale=c ** -0.5)
+    kw = {}
+    if affine:
+        kw.update(a=rnd(c, scale=0.2, shift=1.0), b=rnd(c, scale=0.1))
+    if skip_on:
+        kw["skip"] = rnd(n, h, w, c)
+    out = fs.sepconv_fwd(x, dwk, pwk, True, dil, True, emit_stats=stats, **kw)
+    ref = fs.sepconv_fwd_plain(x, dwk, pwk, True, dil, emit_stats=stats, **kw)
+    torch.testing.assert_close(out.d, ref.d, rtol=0, atol=0)
+    if skip_on:
+        torch.testing.assert_close(out.r, ref.r, rtol=0, atol=0)
+    bkw = dict(kw)
+    if skip_on:
+        bkw["gr"] = rnd(n, h, w, c)
+    if stats:
+        y64 = out.y.double()
+        assert ((out.stats[0].double() - y64.sum((0, 1, 2))).abs()
+                <= 1e-5 * y64.abs().sum((0, 1, 2))).all()
+        bkw.update(y=out.y, gs1=0.3 * torch.randn(f, generator=gen, device="cuda"),
+                   gs2=0.1 * torch.randn(f, generator=gen, device="cuda"))
+    got = fs.sepconv_bwd(x, g, dwk, pwk, out.d, True, dil, **bkw)
+    want = fs.sepconv_bwd_plain(x, g, dwk, pwk, ref.d, True, dil, **bkw)
+    torch.cuda.synchronize()
+    for name, tol in CARD_TOL.items():
+        a = out.y if name == "y" else getattr(got, name)
+        b = ref.y if name == "y" else getattr(want, name)
+        assert (a is None) == (b is None), name
+        if a is not None:
+            err = (a.float() - b.float()).abs().max().item()
+            assert err <= tol * b.float().abs().max().item(), (name, err)
