@@ -64,7 +64,23 @@ otherwise.  Phases, each printing JSON lines:
    weighted-CE loss and the gradient of every parameter (PARITY_TOL);
    against its fp32 run the logits and loss (FP32_TOL).  A coarse gate:
    through ~80 layers bf16 rounding alone moves the gradients by ~15%.
-9. split   — at the affine_stats middle and exit shapes and the stats
+9. cli     — the port's training CLI (``cli/train.py:train_loop``)
+   at full width: LAMB under warmup + multistep, local batch 2, bf16, over
+   8 train and 4 validation samples of (768, 1152, 16) made by
+   ``data/synthetic.py`` and served from memory through the port's dataset,
+   native normalization, loader and pinned-memory prefetch (the card's
+   machine has no h5py: the source is stated on its own line).  8 steps, 2
+   validations, 2 checkpoints in the reference's schema; the last one
+   restored on the card bit-exact; a resume from it that runs its epoch
+   again.  It checks the MLPerf key sequence, every learning rate, the
+   launches (60 per kernel per train step in the slice's forms, the eval
+   forms per validation), the native library's use, the prefetched batches
+   against the host loader's, and one LAMB update of the whole model
+   against the CPU's.  It prints the loop's ms per step beside a bare
+   batch-2 step, the data wait, validation ms per sample, checkpoint save
+   ms (sync and async) and peak memory.  Before the split phase, because
+   of the profiler's lasting cost.
+10. split  — at the affine_stats middle and exit shapes and the stats
    entry shape, each launch of both kernels timed on its own; and one
    default-configuration training step (batch 4, after a warm-up) with the
    card's time by kernel.  Both with torch.profiler, and last: once the
@@ -75,11 +91,14 @@ Then the ``kernels`` JSON line, the nvidia-smi line, and as the last line
 exits non-zero and prints no result.
 """
 
+import functools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -118,6 +137,33 @@ UNITS_PER_STEP = 60
 TRAIN_FORMS = {"stats": 5, "affine_stats": 38, "boundary_stats": 16, "affine": 1}
 EVAL_FORMS = {"base": 5, "affine": 39, "boundary": 16}
 BASE_FORMS = {"base": 60}
+# cli phase: the pod script's settings (LAMB, lr 1e-3, wd 1e-2, local batch
+# 2), cut to a short run.  A 2-step warmup to 2x and milestones "3 6" put
+# the warmup and the first milestone (update 5) inside the 8 steps and the
+# second (update 8) inside the resume; validation and a save every 4 steps,
+# so 2 of each.
+CLI_FLAGS = ["--optimizer", "LAMB", "--start_lr", "1e-3", "--weight_decay", "1e-2",
+             "--local_batch_size", "2", "--lr_schedule",
+             "type=multistep,milestones=3 6,decay_rate=0.1",
+             "--lr_warmup_steps", "2", "--lr_warmup_factor", "2",
+             "--eval_local_batch_size", "4", "--max_epochs", "2", "--logging_frequency", "1",
+             "--validation_frequency", "4", "--save_frequency", "4", "--target_iou", "2.0",
+             "--seed", "333"]
+CLI_SAMPLES = {"train": 8, "validation": 4}
+CLI_STEPS, CLI_EVALS = 8, 2  # 2 epochs of 4 steps; validations at steps 4 and 8
+CLI_LRS = [1e-3, 1.5e-3, 2e-3, 2e-3, 2e-3, 2e-4, 2e-4, 2e-4, 2e-5, 2e-5, 2e-5, 2e-5]
+# The card's machine has no h5py (checked there), so the cli phase serves
+# the arrays the HDF5 writer would write from memory, through the same
+# dataset, normalization and loader code.
+CLI_SOURCE = "memory"
+MLLOG_HEADER = ["submission_benchmark", "submission_org", "submission_division",
+                "submission_status", "submission_platform"]
+MLLOG_INIT = ["init_start", "cache_clear", "seed", "global_batch_size", "opt_name",
+              "opt_base_learning_rate", "opt_learning_rate_warmup_steps",
+              "opt_learning_rate_warmup_factor", "opt_epsilon", "train_samples",
+              "eval_samples", "init_stop", "run_start"]
+# one LAMB update of the whole model, card against CPU (fp32, same gradients)
+LAMB_TOL = 1e-6
 # kernel against plain version: bf16 outputs relative to the largest value,
 # fp32 sums relative to the largest value
 UNIT_TOL = {"y": 2e-2, "dx": 2e-2, "dskip": 2e-2, "ddw": 1e-3, "dpw": 1e-3,
@@ -785,6 +831,225 @@ def model_parity(DeepLabv3plus, weighted_ce_loss, class_weights):
     }
 
 
+def median(values):
+    values = sorted(values)
+    return values[len(values) // 2] if values else None
+
+
+def expected_mllog_keys(start_step, epochs, steps_per_epoch, validation, save):
+    """The MLPerf key sequence of a cli run that logs every step."""
+    keys = MLLOG_HEADER + MLLOG_INIT
+    step = start_step
+    for _ in range(epochs):
+        keys.append("epoch_start")
+        for _ in range(steps_per_epoch):
+            step += 1
+            keys += ["learning_rate", "train_accuracy", "train_loss"]
+            if step % validation == 0:
+                keys += ["eval_start", "eval_accuracy", "eval_loss", "eval_stop"]
+            if step % save == 0:
+                keys += ["save_start", "save_stop"]
+        keys.append("epoch_stop")
+    return keys + ["run_stop"]
+
+
+def check_mllog(records, start_step, epochs, sched, where):
+    """The key sequence in order, run_stop with status success, every
+    learning_rate line equal to schedule(step - 1) and to CLI_LRS, and
+    finite losses.  Returns the train losses."""
+    keys = [r["key"] for r in records]
+    want = expected_mllog_keys(start_step, epochs, 4, 4, 4)
+    check(keys == want, f"{where}: MLPerf keys {keys} != {want}")
+    check(records[-1]["metadata"].get("status") == "success", f"{where}: run_stop {records[-1]}")
+    lrs = [(r["metadata"]["step_num"], r["value"]) for r in records if r["key"] == "learning_rate"]
+    steps = list(range(start_step + 1, start_step + 4 * epochs + 1))
+    check([s for s, _ in lrs] == steps, f"{where}: learning_rate steps {lrs}")
+    for s, v in lrs:
+        check(v == sched(s - 1) and abs(v - CLI_LRS[s - 1]) <= 1e-6 * CLI_LRS[s - 1],
+              f"{where}: step {s} logged lr {v}, schedule {sched(s - 1)}, want {CLI_LRS[s - 1]}")
+    losses = [r["value"] for r in records if r["key"] == "train_loss"]
+    check(len(losses) == len(steps) and all(math.isfinite(v) for v in losses),
+          f"{where}: train losses {losses}")
+    return losses
+
+
+def cli_phase(fs, shape=(768, 1152), device="cuda"):
+    """The port's training CLI at full width (see the module docstring,
+    phase 9).  Returns the measurements and each run's launch counts; the
+    caller holds the counts to the slice's and eval's forms."""
+    from deepcam_tpu_torch.ckpt.checkpoint import checkpoint_path, restore_checkpoint
+    from deepcam_tpu_torch.cli.train import build_parser, make_datasets, train_loop
+    from deepcam_tpu_torch.data.dataset import MemoryCamDataset
+    from deepcam_tpu_torch.data.pipeline import DataLoader, prefetch_to_device
+    from deepcam_tpu_torch.data.synthetic import make_arrays
+    from deepcam_tpu_torch.models.deeplab import DeepLabv3plus
+    from deepcam_tpu_torch.obs.mlperf_log import parse_mllog
+    from deepcam_tpu_torch.ops import native
+    from deepcam_tpu_torch.train.losses import FPW_1, FPW_2, class_weights
+    from deepcam_tpu_torch.train.optim import build_optimizer
+    from deepcam_tpu_torch.train.schedule import get_lr_schedule
+    from deepcam_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    from deepcam_tpu_torch.utils.sync import host_sync
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    sync = functools.partial(host_sync, dev)
+
+    result = {"source": CLI_SOURCE, "input": [2, *shape, 16], "flags": CLI_FLAGS}
+    with tempfile.TemporaryDirectory(prefix="deepcam_cli_") as tmp:
+        root, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
+        t0 = time.perf_counter()
+        splits, stats = make_arrays(root, shape=shape, seed=0,
+                                    n_train=CLI_SAMPLES["train"],
+                                    n_validation=CLI_SAMPLES["validation"])
+        files = {name: (d, lb) for samples in splits.values() for name, d, lb in samples}
+        del splits
+        result["make_data_s"] = time.perf_counter() - t0
+        dataset_cls = functools.partial(MemoryCamDataset, files=files, stats=stats)
+
+        def args(tag, *extra):
+            return build_parser().parse_args(
+                CLI_FLAGS + ["--data_dir_prefix", root, "--output_dir", out, "--run_tag", tag,
+                             "--device", device, *extra])
+
+        pargs = args("cli")
+        train_set, validation_set = make_datasets(pargs, dataset_cls)
+        check(train_set.bf16_out and len(train_set) == 8 and len(validation_set) == 4,
+              "cli datasets")
+        sched = get_lr_schedule(1e-3, pargs.lr_schedule, pargs.lr_warmup_steps,
+                                pargs.lr_warmup_factor)
+
+        # every batch the card receives through the pinned-memory prefetch
+        # equals the host loader's, read on a compute stream kept busy
+        host = [(d.clone(), lb.clone()) for d, lb, _ in DataLoader(train_set, 2, num_workers=2)]
+        busy = torch.randn(2048, 2048, device=dev)
+        seen = []
+        for d, lb, _ in prefetch_to_device(DataLoader(train_set, 2, num_workers=2,
+                                                      pin_memory=on_card), dev):
+            for _ in range(4):
+                busy = busy @ busy / busy.norm()
+            seen.append((d.clone(), lb.clone()))
+        sync()
+        check(len(seen) == len(host) == 4 and all(
+            torch.equal(d.cpu(), hd) and torch.equal(lb.cpu(), hl)
+            for (d, lb), (hd, hl) in zip(seen, host)), "prefetched batches differ from the loader's")
+        result["prefetch_batches_checked"] = len(seen)
+        x, y = seen[0][0], seen[0][1]
+        del host, seen, busy
+
+        # the bare train step at batch 2 on batches already on the card
+        model = DeepLabv3plus(n_classes=3, dtype=torch.bfloat16, device=dev, seed=333)
+        state = create_train_state(model, build_optimizer(
+            "LAMB", model.parameters(), sched, eps=1e-8, weight_decay=1e-2))
+        step_fn = make_train_step(list(class_weights()), fpw_1=FPW_1, fpw_2=FPW_2)
+        state, _ = step_fn(state, x, y)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            state, metrics = step_fn(state, x, y)
+        float(metrics["loss"])
+        result["bare_step_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+        del model, state, step_fn, metrics, x, y
+        if on_card:
+            torch.cuda.empty_cache()
+        initial = DeepLabv3plus(n_classes=3, dtype=torch.bfloat16, device="cpu", seed=333)
+        watched = {k: v.detach().clone() for k, v in initial.named_parameters()
+                   if k.endswith(("block4.sepconv1.pointwise.weight", "conv5.pointwise.weight",
+                                  "last_deconv.weight", "bn5.weight"))}
+        del initial
+
+        # the run: counters zeroed just before, read just after
+        runs = {}
+        for tag, extra in (("cli", ()), ("resume", ("--checkpoint", checkpoint_path(
+                out, "model", CLI_STEPS), "--async_checkpoint"))):
+            pargs = args(tag, *extra)
+            sync()
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            fs.reset_launches()
+            native.reset_uses()
+            t0 = time.perf_counter()
+            res = train_loop(pargs, train_set, validation_set)
+            sync()
+            wall = time.perf_counter() - t0
+            runs[tag] = {"launches": dict(fs.LAUNCHES), "forms": measured_forms(fs),
+                         "native_uses": dict(native.USES)}
+            check(native.lib() is not None and native.USES["native"] > 0
+                  and native.USES["numpy"] == 0, f"{tag}: native library uses {native.USES}")
+            t = res.timings
+            start = 0 if tag == "cli" else CLI_STEPS
+            epochs = 2 if tag == "cli" else 1
+            losses = check_mllog(parse_mllog(os.path.join(out, "logs", f"{tag}.log")),
+                                 start, epochs, sched, tag)
+            check(res.metrics["step"] == start + 4 * epochs and res.metrics["epoch"] == 2
+                  and t["steps"] == 4 * epochs, f"{tag}: {res.metrics}, {t}")
+            check(res.metrics["eval_samples_seen"] == 4.0, f"{tag}: {res.metrics}")
+            runs[tag].update({
+                "metrics": res.metrics, "losses": losses, "wall_s": wall, "timings": t,
+                "loop_step_ms": t["train_s"] / t["steps"] * 1e3,
+                "loop_step_ms_median": median(t["step_ms"]),
+                "data_wait_ms_per_step": t["data_wait_s"] / t["steps"] * 1e3,
+                "data_wait_ms_median": median(t["wait_ms"]),
+                "validation_ms_per_sample": t["validation_s"] / t["validation_samples"] * 1e3,
+                "save_ms": t["save_s"] / t["saves"] * 1e3,
+                "max_memory_allocated_bytes": (torch.cuda.max_memory_allocated()
+                                               if on_card else None)})
+            if tag == "cli":
+                trained = res.state
+                now = dict(trained.model.named_parameters())
+                changed = {k: not torch.equal(v, now[k].detach().cpu()) for k, v in watched.items()}
+                check(all(changed.values()), f"parameters not updated: {changed}")
+                check(sorted(f for f in os.listdir(out) if f.endswith(".cpt")) == [
+                    "model_step_4.cpt", "model_step_8.cpt"], f"checkpoints {os.listdir(out)}")
+                # the last checkpoint, restored on the card, is bit-exact
+                fresh = DeepLabv3plus(n_classes=3, dtype=torch.bfloat16, device=dev, seed=0)
+                fresh = create_train_state(fresh, build_optimizer(
+                    "LAMB", fresh.parameters(), sched, eps=1e-8, weight_decay=1e-2))
+                t0 = time.perf_counter()
+                fresh, epoch = restore_checkpoint(checkpoint_path(out, "model", CLI_STEPS), fresh)
+                sync()
+                runs[tag]["restore_ms"] = (time.perf_counter() - t0) * 1e3
+                check((fresh.step, epoch) == (CLI_STEPS, 1), f"restored {fresh.step}, {epoch}")
+                a, b = fresh.model.state_dict(), trained.model.state_dict()
+                check(sorted(a) == sorted(b) and all(torch.equal(a[k], b[k]) for k in a),
+                      "restored model differs from the saved one")
+                pa, pb = dict(fresh.model.named_parameters()), dict(trained.model.named_parameters())
+                for k in pa:
+                    sa, sb = fresh.optimizer.state[pa[k]], trained.optimizer.state[pb[k]]
+                    check(sorted(sa) == ["exp_avg", "exp_avg_sq", "step"] and all(
+                        torch.equal(sa[n], sb[n]) for n in sa), f"restored optimizer state {k}")
+                runs[tag]["restored_tensors_checked"] = len(a) + 3 * len(pa)
+                del fresh, a, b, pa, pb, trained, now, res
+                if on_card:
+                    torch.cuda.empty_cache()
+        check(sorted(f for f in os.listdir(out) if f.endswith(".cpt")) == [
+            "model_step_12.cpt", "model_step_4.cpt", "model_step_8.cpt"],
+            f"checkpoints after the resume {os.listdir(out)}")
+        result["runs"] = runs
+
+        # one LAMB update of the whole model: card against CPU, fp32, with
+        # the same gradients
+        base = [p.detach().cpu().clone() for p in res.state.model.parameters()]
+        del res
+        gen = torch.Generator().manual_seed(7)
+        grads = [1e-3 * torch.randn(p.shape, generator=gen) for p in base]
+        updated = {}
+        for where in ("cpu", device):
+            ps = [torch.nn.Parameter(p.to(where, copy=True)) for p in base]
+            opt = build_optimizer("LAMB", ps, 1e-3, eps=1e-8, weight_decay=1e-2)
+            for p, g in zip(ps, grads):
+                p.grad = g.to(where)
+            opt.step()
+            updated[where] = [p.detach().cpu() for p in ps]
+            del ps, opt
+        worst = max(rel_err(a, b) for a, b in zip(updated[device], updated["cpu"]))
+        check(worst <= LAMB_TOL, f"LAMB card vs CPU: {worst} > {LAMB_TOL}")
+        result["lamb_update"] = {"tensors": len(base), "params": sum(p.numel() for p in base),
+                                 "worst_rel": worst, "tolerance": LAMB_TOL}
+    return result
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one card",
@@ -930,7 +1195,23 @@ def main():
         for k, tol in tols.items():
             check(par[ref][k] <= tol, f"card vs CPU {ref}: {k} {par[ref][k]} > {tol}")
 
-    # 9. each launch of both kernels on its own, at the headline shapes, and
+    # 9. the training CLI at full width, with the counters zeroed just
+    # before and read just after each of its two runs
+    cli = cli_phase(fs)
+    emit({"phase": "cli_source", "source": cli["source"]})
+    for tag, steps, evals in (("cli", CLI_STEPS, CLI_EVALS), ("resume", 4, 1)):
+        run = cli["runs"][tag]
+        want_fwd = {k: TRAIN_FORMS.get(k, 0) * steps + EVAL_FORMS.get(k, 0) * evals
+                    for k in {**TRAIN_FORMS, **EVAL_FORMS}}
+        want_bwd = {k: v * steps for k, v in TRAIN_FORMS.items()}
+        for kname, want in (("sepconv_fwd", want_fwd), ("sepconv_bwd", want_bwd)):
+            check(run["forms"][kname] == want and run["launches"][kname] == sum(want.values()),
+                  f"{tag}: {kname} forms {run['forms'][kname]} in {steps} train steps and "
+                  f"{evals} validations, want {want}")
+    emit({"phase": "cli", **cli, "slice_step_ms_batch4": slice_default["ms_per_step"],
+          "device": kind, "nvidia_smi": smi})
+
+    # 10. each launch of both kernels on its own, at the headline shapes, and
     # one profiled training step
     split_phase(fs, rows, splits)
     del splits
@@ -961,7 +1242,10 @@ def main():
             "form": HEADLINE[0], "shape": HEADLINE[1], "forms": rows[kname],
             "form_launches_per_step_all_shapes": {
                 step: {form: v / n for form, v in forms[kname].items()}
-                for step, forms, n in measured}})
+                for step, forms, n in measured},
+            "launches_by_path": {"slice": launches[kname], "eval": eval_launches[kname],
+                                 **{tag: run["launches"][kname]
+                                    for tag, run in cli["runs"].items()}}})
     kernels.append(probe)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

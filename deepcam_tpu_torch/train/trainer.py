@@ -22,9 +22,15 @@ from .metrics import compute_score, per_sample_iou
 
 @dataclass
 class TrainState:
+    """``step`` counts the train steps taken, which is also the
+    optimizer's update count that a learning-rate schedule reads;
+    ``epoch`` is the epoch in progress (0-based), as a checkpoint records
+    it."""
+
     step: int
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
+    epoch: int = 0
 
 
 def create_train_state(model: torch.nn.Module,

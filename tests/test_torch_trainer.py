@@ -95,8 +95,13 @@ def test_adamw_matches_optax():
 
 
 def test_only_adamw_is_ported():
+    """Adam, AdamW and LAMB are ported now (``test_torch_schedule_optim.py``);
+    an optimizer the JAX package does not have still raises."""
+    for name in ("Adam", "AdamW", "LAMB"):
+        opt = build_optimizer(name, [torch.nn.Parameter(torch.zeros(1))], LR)
+        assert type(opt).__name__ == name
     with pytest.raises(NotImplementedError):
-        build_optimizer("LAMB", [torch.nn.Parameter(torch.zeros(1))], LR)
+        build_optimizer("SGD", [torch.nn.Parameter(torch.zeros(1))], LR)
 
 
 def _two_steps():

@@ -34,6 +34,30 @@ def release_memory():
 
 
 @contextlib.contextmanager
+def capped_torch_threads(n_max: int = 2):
+    """Caps torch's intra-op threads at ``n_max`` inside the block.  The
+    suite runs six workers on one machine; with every worker's pool as wide
+    as the machine, full-width CPU work of the port ran ten times slower
+    than alone."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, n_max))
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+@pytest.fixture
+def few_torch_threads():
+    """``capped_torch_threads`` around the test; a module enables it with
+    ``pytestmark``."""
+    with capped_torch_threads():
+        yield
+
+
+@contextlib.contextmanager
 def jax_base_config():
     """The JAX model as the port runs it: unfused XLA sepconv (the plain
     reference path), no BN-apply fold, no kernel-emitted statistics (and so
