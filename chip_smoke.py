@@ -31,7 +31,9 @@ otherwise.  Phases, each printing JSON lines:
    ring stages, blocks per SM, waves).  Then the archived probe's counterpart: the row-window
    copy driven once through its entry at the probe's shape (its launch
    counted), held bit-exact to its plain version, and timed beside
-   torch.index_select.
+   torch.index_select.  Last, two host costs of a train step's launches:
+   encoding the TMA maps, and the device guard of ``ops/build.py:launch``
+   (entered only when another device is current; timed entered and not).
 4. units   — one full-resolution training step in which every one of the
    60 fused units holds all its kernel outputs to the plain version on the
    same inputs, with the tolerances of phase 3: every unit shape and form
@@ -80,7 +82,30 @@ otherwise.  Phases, each printing JSON lines:
    batch-2 step, the data wait, validation ms per sample, checkpoint save
    ms (sync and async) and peak memory.  Before the split phase, because
    of the profiler's lasting cost.
-10. split  — at the affine_stats middle and exit shapes and the stats
+10. ddp    — data parallelism over ``torch.distributed``, in child
+   processes of this script (``--ddp-child``), which load the kernels the
+   build phase built.  (a) World 1 on NCCL through the CLI: one rank with
+   torchrun's variables set, so that ``init_distributed("auto")`` wires up
+   NCCL and the train step runs under DDP; the cli phase's flags for 8
+   LAMB steps at local batch 2 and one validation.  It checks 60 launches
+   per kernel per step in the slice's forms, and prints the loop's median
+   step and peak memory beside the cli phase's no-group numbers, and a
+   bare batch-2 step under DDP beside the bare step without a group, in
+   the same process, in three alternating rounds.  (b) Two ranks on the one card in a gloo
+   group (NCCL refuses two ranks on one card): 2 AdamW steps at batch 2 of
+   (768, 1152, 16) per rank.  The ranks' parameters and running statistics
+   are bit-identical to each other after each step; against an emulation
+   of both ranks in this process (per-rank BN, averaged gradients, one
+   update, averaged running statistics) every parameter and statistic
+   tensor, the loss and the IoU lie within DDP_SPREAD times the spread
+   between two emulation runs, a limit below what one bf16 rounding of the
+   inputs moves; the running statistics are the ranks' mean, not rank 0's
+   own.  Then the CLI's validation (``cli/train.py:validate``) over 5
+   samples that ``make_datasets`` shards 2 and 3: both ranks count 5 and
+   read the same IoU; rank 0 alone writes a checkpoint and log
+   lines.  The gloo step time is printed labelled: gloo stages the
+   tensors through the host.
+11. split  — at the affine_stats middle and exit shapes and the stats
    entry shape, each launch of both kernels timed on its own; and one
    default-configuration training step (batch 4, after a warm-up) with the
    card's time by kernel.  Both with torch.profiler, and last: once the
@@ -91,7 +116,9 @@ Then the ``kernels`` JSON line, the nvidia-smi line, and as the last line
 exits non-zero and prints no result.
 """
 
+import datetime
 import functools
+import gc
 import json
 import math
 import os
@@ -356,6 +383,39 @@ def hold_stats(errs, where):
     for name, err in errs.items():
         tol = STATS_PLAIN_TOL if name.endswith("_plain") else STATS_OWN_TOL
         check(math.isfinite(err) and err <= tol, f"{where} {name}: {err} > {tol}")
+
+
+def launch_guard_us(build, reps=20000, rounds=3):
+    """Host microseconds per launch of ``build.launch`` around an entry
+    that does nothing, with the tensors' device the current one (as on the
+    main path, where ``device_for`` set it): ``launch`` as it runs (the
+    guard skipped), the stream lookup and call with the device guard always
+    entered, and the same without the guard.  The least of ``rounds``
+    alternating rounds of ``reps`` calls each."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    def noop(*args):
+        return 0
+
+    def guarded():
+        with torch.cuda.device(dev):
+            noop(1, 2, torch.cuda.current_stream(dev).cuda_stream)
+
+    def bare():
+        noop(1, 2, torch.cuda.current_stream(dev).cuda_stream)
+
+    def as_run():
+        build.launch("noop", noop, dev, 1, 2)
+
+    best = {}
+    for _ in range(rounds):
+        for name, fn in (("launch", as_run), ("always_guarded", guarded), ("unguarded", bare)):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            us = (time.perf_counter() - t0) / reps * 1e6
+            best[name] = min(us, best.get(name, us))
+    return best
 
 
 def kernel_phase(fs):
@@ -1050,6 +1110,474 @@ def cli_phase(fs, shape=(768, 1152), device="cuda"):
     return result
 
 
+# ---------------------------------------------------------------------------
+# ddp phase: data parallelism through torch.distributed
+# ---------------------------------------------------------------------------
+
+# (a) world 1 on NCCL through the CLI: the cli phase's flags, one epoch of
+# 8 steps at local batch 2 over 16 train samples, one validation of 4, no
+# save
+DDP_CLI_FLAGS = CLI_FLAGS + ["--max_epochs", "1", "--validation_frequency", "8",
+                             "--save_frequency", "0"]
+DDP_CLI_SAMPLES = {"train": 16, "validation": 4}
+DDP_CLI_STEPS = 8
+DDP_BARE_STEPS = 8
+DDP_ROUNDS = 3
+# (b) two ranks on the one card over gloo: AdamW, batch 2 of (768, 1152, 16)
+# per rank, 2 steps, then validation over 5 samples in shards of 2 and 3 at
+# eval batch 2
+DDP_WORLD = 2
+DDP_STEPS = 2
+DDP_EVAL_SAMPLES, DDP_EVAL_BATCH = 5, 2
+# ranks against the in-process emulation: within DDP_SPREAD times the
+# spread between two emulation runs of the same call (cuDNN's weight
+# gradients are not bit-reproducible); that limit must lie below what one
+# bf16 rounding of the inputs moves (an emulation run whose inputs are
+# scaled by 1 + 2^-8 * N(0, 1) before their rounding to bf16)
+DDP_SPREAD = 3.0
+DDP_CHILD_TIMEOUT_S = 600
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_children(jobs, tmp, env_of=None):
+    """Runs this script once per job (``--ddp-child <json>``), all at once,
+    and returns each job's JSON result.  A child that fails or hangs fails
+    the phase, with the end of its log."""
+    procs = []
+    for i, job in enumerate(jobs):
+        job = {**job, "result": os.path.join(tmp, f"child{i}.json")}
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+        env.update(env_of(i) if env_of else {})
+        log = open(os.path.join(tmp, f"child{i}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--ddp-child", json.dumps(job)],
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=env, stdout=log,
+            stderr=subprocess.STDOUT), log, job))
+    deadline = time.monotonic() + DDP_CHILD_TIMEOUT_S
+    try:
+        for proc, _, _ in procs:
+            try:
+                proc.wait(timeout=max(deadline - time.monotonic(), 1))
+            except subprocess.TimeoutExpired:
+                pass
+    finally:
+        for proc, log, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    results = []
+    for i, (proc, _, job) in enumerate(procs):
+        with open(os.path.join(tmp, f"child{i}.log")) as f:
+            tail = f.read()[-3000:]
+        check(proc.returncode == 0, f"ddp child {i} ({job['kind']}) exited {proc.returncode}:\n{tail}")
+        with open(job["result"]) as f:
+            results.append(json.load(f))
+    return results
+
+
+def ddp_batch(step, rank):
+    """Rank ``rank``'s half of the global batch of ``step`` (4 samples),
+    made on the card from a seed: the same in every process."""
+    gen = torch.Generator(device="cuda").manual_seed(100 + step)
+    x = torch.rand(DDP_WORLD * 2, 768, 1152, 16, generator=gen, device="cuda")
+    y = torch.randint(0, 3, (DDP_WORLD * 2, 768, 1152), generator=gen, device="cuda")
+    return x[2 * rank:2 * rank + 2], y[2 * rank:2 * rank + 2]
+
+
+def ddp_model_and_step():
+    from deepcam_tpu_torch.models.deeplab import DeepLabv3plus
+    from deepcam_tpu_torch.train.losses import FPW_1, FPW_2, class_weights
+    from deepcam_tpu_torch.train.optim import build_optimizer
+    from deepcam_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    model = DeepLabv3plus(n_classes=3, dtype=torch.bfloat16, device="cuda", seed=333)
+    state = create_train_state(model, build_optimizer(
+        "AdamW", model.parameters(), 1e-3, eps=1e-8, weight_decay=1e-2))
+    return state, make_train_step(list(class_weights()), fpw_1=FPW_1, fpw_2=FPW_2)
+
+
+def ddp_flat(model):
+    """Every parameter, then every BN running statistic, as two flat fp32
+    vectors on the card."""
+    from deepcam_tpu_torch.train.trainer import running_stats
+
+    return (torch.cat([p.detach().reshape(-1) for p in model.parameters()]),
+            torch.cat([b.reshape(-1) for b in running_stats(model)]))
+
+
+def ddp_child_cli(job):
+    """(a): one rank under torchrun's variables.  First the bare LAMB step
+    at batch 2, in DDP_ROUNDS rounds: without a process group, then with
+    NCCL wired up by ``auto`` and a new state under DDP (each 2 warm-up
+    and DDP_BARE_STEPS timed steps, with the peak memory of each part).
+    Then the CLI's loop trains under DDP."""
+    from deepcam_tpu_torch.cli.train import build_parser, make_datasets, train_loop
+    from deepcam_tpu_torch.core import mesh
+    from deepcam_tpu_torch.data.dataset import MemoryCamDataset
+    from deepcam_tpu_torch.data.pipeline import DataLoader, prefetch_to_device
+    from deepcam_tpu_torch.data.synthetic import make_arrays
+    from deepcam_tpu_torch.models.deeplab import DeepLabv3plus
+    from deepcam_tpu_torch.ops import fused_sepconv as fs
+    from deepcam_tpu_torch.train.losses import FPW_1, FPW_2, class_weights
+    from deepcam_tpu_torch.train.optim import build_optimizer
+    from deepcam_tpu_torch.train.schedule import get_lr_schedule
+    from deepcam_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    dev = mesh.device_for("cuda")
+    out = {"device": str(dev)}
+    with tempfile.TemporaryDirectory(prefix="deepcam_ddp_") as tmp:
+        root = os.path.join(tmp, "data")
+        splits, stats = make_arrays(root, shape=(768, 1152), seed=0,
+                                    n_train=DDP_CLI_SAMPLES["train"],
+                                    n_validation=DDP_CLI_SAMPLES["validation"])
+        files = {name: (d, lb) for samples in splits.values() for name, d, lb in samples}
+        del splits
+        pargs = build_parser().parse_args(DDP_CLI_FLAGS + [
+            "--data_dir_prefix", root, "--output_dir", os.path.join(tmp, "out"),
+            "--run_tag", "ddp", "--device", "cuda"])
+        dataset_cls = functools.partial(MemoryCamDataset, files=files, stats=stats)
+
+        # the bare step on a batch already on the card, in DDP_ROUNDS
+        # rounds of: without a group, then under DDP (a group wired up for
+        # the round and a new DDP wrapper, then the group left)
+        x, y, _ = next(prefetch_to_device(DataLoader(make_datasets(pargs, dataset_cls)[0], 2,
+                                                     num_workers=2), dev))
+        sched = get_lr_schedule(1e-3, pargs.lr_schedule, pargs.lr_warmup_steps,
+                                pargs.lr_warmup_factor)
+        step_fn = make_train_step(list(class_weights()), fpw_1=FPW_1, fpw_2=FPW_2)
+        bare = {key: {"step_ms": [], "warmup_max_memory_allocated_bytes": 0,
+                      "max_memory_allocated_bytes": 0} for key in ("no_group", "ddp")}
+        for _ in range(DDP_ROUNDS):
+            for key, side in bare.items():
+                # a fresh state for each part: a DDP wrapper stays bound to
+                # its group and its model, and one state at a time sets the
+                # peak
+                model = DeepLabv3plus(n_classes=3, dtype=torch.bfloat16, device=dev, seed=333)
+                state = create_train_state(model, build_optimizer(
+                    "LAMB", model.parameters(), sched, eps=1e-8, weight_decay=1e-2))
+                if key == "ddp":
+                    os.environ["MASTER_PORT"] = str(free_port())
+                    check(mesh.init_distributed("auto", dev) is True, "auto did not wire up")
+                # 2 warm-up steps (DDP sizes its buckets anew after its
+                # first backward), then the steady peak and time
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                for _ in range(2):
+                    state, _ = step_fn(state, x, y)
+                torch.cuda.synchronize()
+                side["warmup_max_memory_allocated_bytes"] = max(
+                    torch.cuda.max_memory_allocated(), side["warmup_max_memory_allocated_bytes"])
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                for _ in range(DDP_BARE_STEPS):
+                    state, metrics = step_fn(state, x, y)
+                float(metrics["loss"])
+                side["step_ms"].append((time.perf_counter() - t0) / DDP_BARE_STEPS * 1e3)
+                side["max_memory_allocated_bytes"] = max(torch.cuda.max_memory_allocated(),
+                                                         side["max_memory_allocated_bytes"])
+                side["replica"] = type(state.replica).__name__
+                del model, state, metrics
+                gc.collect()  # the DDP wrapper's cycles hold its buckets
+                if key == "ddp":
+                    mesh.destroy_distributed()
+        for side in bare.values():
+            side["step_ms_median"] = median(side["step_ms"])
+        bare["ddp_minus_no_group_ms_by_round"] = [
+            d - n for d, n in zip(bare["ddp"]["step_ms"], bare["no_group"]["step_ms"])]
+        out["bare"] = bare
+        del step_fn, x, y
+        torch.cuda.empty_cache()
+        os.environ["MASTER_PORT"] = str(free_port())
+        check(mesh.init_distributed("auto", dev) is True, "auto did not wire up")
+        try:
+            dist = mesh.initialized_dist()
+            out.update(backend=dist.get_backend(), world_size=mesh.get_size(),
+                       rank=mesh.get_rank())
+            train_set, validation_set = make_datasets(pargs, dataset_cls)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fs.reset_launches()
+            res = train_loop(pargs, train_set, validation_set)
+            torch.cuda.synchronize()
+            out["launches"] = dict(fs.LAUNCHES)
+            out["forms"] = measured_forms(fs)
+            out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+            t = res.timings
+            out.update(metrics=res.metrics, steps=t["steps"],
+                       loop_step_ms_median=median(t["step_ms"]),
+                       loop_step_ms=t["train_s"] / t["steps"] * 1e3,
+                       data_wait_ms_median=median(t["wait_ms"]),
+                       replica=type(res.state.replica).__name__)
+        finally:
+            mesh.destroy_distributed()
+    return out
+
+
+def ddp_child_gloo(job):
+    """(b): one of two ranks on the one card, in a gloo group that this
+    process builds and the port adopts.  After the train steps, the CLI's
+    own validation over this rank's shard of DDP_EVAL_SAMPLES samples, as
+    ``make_datasets`` shards them (2 and 3) and served from memory."""
+    from deepcam_tpu_torch.ckpt.checkpoint import save_checkpoint
+    from deepcam_tpu_torch.cli.train import build_parser, make_datasets, validate
+    from deepcam_tpu_torch.core import mesh
+    from deepcam_tpu_torch.data.dataset import MemoryCamDataset
+    from deepcam_tpu_torch.data.pipeline import DataLoader
+    from deepcam_tpu_torch.data.synthetic import make_arrays
+    from deepcam_tpu_torch.obs.mlperf_log import MLPerfLogger
+    from deepcam_tpu_torch.parallel import collectives
+    from deepcam_tpu_torch.train.losses import FPW_1, FPW_2, class_weights
+    from deepcam_tpu_torch.train.trainer import make_eval_step
+
+    rank = job["rank"]
+    torch.distributed.init_process_group(
+        "gloo", init_method="file://" + job["store"], rank=rank, world_size=DDP_WORLD,
+        timeout=datetime.timedelta(seconds=300))
+    out = {"rank": rank}
+    try:
+        dev = mesh.device_for("cuda:0")
+        check(mesh.init_distributed("auto", dev) is False, "the group was not adopted")
+        out.update(backend=torch.distributed.get_backend(), world_size=mesh.get_size(),
+                   device=str(dev))
+        state, step_fn = ddp_model_and_step()
+        steps = []
+        for step in range(DDP_STEPS):
+            x, y = ddp_batch(step, rank)
+            x = x.bfloat16()
+            collectives.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, x, y)
+            m = {k: float(v) for k, v in metrics.items()}
+            ms = (time.perf_counter() - t0) * 1e3
+            params, stats = ddp_flat(state.model)
+            same = True
+            for t in (params, stats):
+                lo, hi = t.clone(), t.clone()
+                torch.distributed.all_reduce(lo, op=torch.distributed.ReduceOp.MIN)
+                torch.distributed.all_reduce(hi, op=torch.distributed.ReduceOp.MAX)
+                same = same and torch.equal(lo, hi)
+            if rank == 0:
+                torch.save({"params": params.cpu(), "stats": stats.cpu()},
+                           os.path.join(job["tmp"], f"rank0_step{step}.pt"))
+            steps.append({"metrics": m, "bit_identical": bool(same),
+                          "gloo_step_ms_host_staged": ms})
+        out["steps"] = steps
+        out["replica"] = type(state.replica).__name__
+        root = os.path.join(job["tmp"], f"data{rank}")
+        splits, stats = make_arrays(root, shape=(768, 1152), seed=1, n_train=DDP_WORLD,
+                                    n_validation=DDP_EVAL_SAMPLES)
+        files = {name: (d, lb) for samples in splits.values() for name, d, lb in samples}
+        pargs = build_parser().parse_args(DDP_CLI_FLAGS + [
+            "--data_dir_prefix", root, "--eval_local_batch_size", str(DDP_EVAL_BATCH),
+            "--device", "cuda"])
+        _, validation_set = make_datasets(
+            pargs, functools.partial(MemoryCamDataset, files=files, stats=stats))
+        out["eval_shard"] = len(validation_set)
+        eval_fn = make_eval_step(list(class_weights()), fpw_1=FPW_1, fpw_2=FPW_2)
+        loader = DataLoader(validation_set, DDP_EVAL_BATCH, num_workers=2, drop_last=False,
+                            pin_memory=True)
+        out["eval"] = list(validate(state, eval_fn, loader, dev))
+        own = os.path.join(job["tmp"], f"out{rank}")  # each rank its own
+        os.makedirs(own)
+        save_checkpoint(os.path.join(own, "model_step_2.cpt"), state, 0)
+        logger = MLPerfLogger(os.path.join(own, "logs", "ddp.log"))
+        logger.log_event(key="eval_accuracy", value=out["eval"][2] / out["eval"][0], sync=True)
+        logger.close()
+    finally:
+        mesh.destroy_distributed()
+    return out
+
+
+def ddp_child(job):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    result = ddp_child_cli(job) if job["kind"] == "cli" else ddp_child_gloo(job)
+    with open(job["result"], "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def ddp_emulate(input_scale=None):
+    """The two ranks of (b) in this process: each rank's forward and
+    backward with its own BN batch statistics from the same running
+    statistics, the gradients averaged, one AdamW update, the running
+    statistics averaged, loss and IoU averaged.  ``input_scale`` (a
+    generator) scales each fp32 input by 1 + 2^-8 * N(0, 1) before its
+    rounding to bf16.  Returns per step the metrics and the flat
+    parameters and running statistics (on the host)."""
+    from deepcam_tpu_torch.ops.classify import argmax_channels
+    from deepcam_tpu_torch.train.losses import FPW_1, FPW_2, class_weights, weighted_ce_loss
+    from deepcam_tpu_torch.train.metrics import compute_score
+    from deepcam_tpu_torch.train.trainer import running_stats
+
+    state, _ = ddp_model_and_step()
+    model, opt = state.model, state.optimizer
+    params, stats = list(model.parameters()), running_stats(model)
+    weights = list(class_weights())
+    model.train()
+    out = []
+    for step in range(DDP_STEPS):
+        start = [s.clone() for s in stats]
+        grads, rank_stats, losses, ious = [], [], [], []
+        for rank in range(DDP_WORLD):
+            torch._foreach_copy_(stats, start)
+            x, y = ddp_batch(step, rank)
+            if input_scale is not None:
+                x = x * (1 + 2.0 ** -8 * torch.randn(x.shape, generator=input_scale,
+                                                     device="cuda"))
+            logits = model(x.bfloat16())
+            loss = weighted_ce_loss(logits, y, weights, FPW_1, FPW_2)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            grads.append([p.grad.clone() for p in params])
+            rank_stats.append([s.clone() for s in stats])
+            losses.append(loss.detach())
+            with torch.no_grad():
+                ious.append(compute_score(argmax_channels(logits), y,
+                                          num_classes=logits.shape[-1]))
+            del logits, loss
+        for p, *g in zip(params, *grads):
+            p.grad = sum(g) / DDP_WORLD
+        del grads
+        opt.step()
+        torch._foreach_copy_(stats, [sum(s) / DDP_WORLD for s in zip(*rank_stats)])
+        flat = ddp_flat(model)
+        out.append({"metrics": {"loss": float(sum(losses) / DDP_WORLD),
+                                "iou": float(sum(ious) / DDP_WORLD)},
+                    "params": flat[0].cpu(), "stats": flat[1].cpu(),
+                    "rank0_stats": torch.cat([s.reshape(-1) for s in rank_stats[0]]).cpu()})
+    del state, model, opt, params, stats
+    torch.cuda.empty_cache()
+    return out
+
+
+def ddp_errors(got, ref, sizes):
+    """Worst relative error over the tensors of a flat vector: each
+    tensor's max |got - ref| over its max |ref|."""
+    worst = 0.0
+    for a, b in zip(got.split(sizes), ref.split(sizes)):
+        worst = max(worst, ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item())
+    return worst
+
+
+def ddp_phase(fs, cli):
+    """The data-parallel step on the card (module docstring, phase 10)."""
+    from deepcam_tpu_torch.models.deeplab import DeepLabv3plus
+    from deepcam_tpu_torch.train.trainer import running_stats
+
+    torch.cuda.empty_cache()
+    result = {}
+    with tempfile.TemporaryDirectory(prefix="deepcam_ddp_") as tmp:
+        # (a) world 1 on NCCL through the CLI
+        port = free_port()
+        t0 = time.perf_counter()
+        (a,) = run_children([{"kind": "cli"}], tmp, lambda i: {
+            "WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0",
+            "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)})
+        a["wall_s"] = time.perf_counter() - t0
+        check(a["backend"] == "nccl" and a["world_size"] == 1 and a["replica"] ==
+              a["bare"]["ddp"]["replica"] == "DistributedDataParallel"
+              and a["bare"]["no_group"]["replica"] == "NoneType", f"ddp (a): {a}")
+        check(a["metrics"]["step"] == DDP_CLI_STEPS and a["steps"] == DDP_CLI_STEPS
+              and a["metrics"]["eval_samples_seen"] == DDP_CLI_SAMPLES["validation"],
+              f"ddp (a): {a['metrics']}")
+        want_fwd = {k: TRAIN_FORMS.get(k, 0) * DDP_CLI_STEPS + EVAL_FORMS.get(k, 0)
+                    for k in {**TRAIN_FORMS, **EVAL_FORMS}}
+        want_bwd = {k: v * DDP_CLI_STEPS for k, v in TRAIN_FORMS.items()}
+        for kname, want in (("sepconv_fwd", want_fwd), ("sepconv_bwd", want_bwd)):
+            check(a["forms"][kname] == want and a["launches"][kname] == sum(want.values()),
+                  f"ddp (a): {kname} forms {a['forms'][kname]}, want {want}")
+        # beside it, the cli phase's no-group loop (parent process, same call)
+        nogroup = cli["runs"]["cli"]
+        result["world1_nccl_cli"] = {
+            **a, "launches_per_step": {k: v / DDP_CLI_STEPS for k, v in
+                                       a["forms"]["sepconv_bwd"].items()},
+            "ddp_minus_no_group_bare_step_ms": (a["bare"]["ddp"]["step_ms_median"]
+                                                - a["bare"]["no_group"]["step_ms_median"]),
+            "cli_phase_no_group": {
+                "loop_step_ms_median": nogroup["loop_step_ms_median"],
+                "bare_step_ms": cli["bare_step_ms"],
+                "max_memory_allocated_bytes": nogroup["max_memory_allocated_bytes"]}}
+
+        # (b) two ranks on the one card over gloo, against the emulation
+        store = os.path.join(tmp, "gloo.store")
+        t0 = time.perf_counter()
+        ranks = run_children([{"kind": "gloo", "rank": r, "store": store, "tmp": tmp}
+                              for r in range(DDP_WORLD)], tmp)
+        wall = time.perf_counter() - t0
+        r0, r1 = ranks
+        check(all(r["backend"] == "gloo" and r["world_size"] == DDP_WORLD
+                  and r["replica"] == "DistributedDataParallel" for r in ranks), f"ddp (b): {ranks}")
+        for s0, s1 in zip(r0["steps"], r1["steps"]):
+            check(s0["bit_identical"] and s1["bit_identical"] and s0["metrics"] == s1["metrics"],
+                  f"ddp (b): the ranks differ: {s0}, {s1}")
+        check(r0["eval"] == r1["eval"] and r0["eval"][0] == DDP_EVAL_SAMPLES
+              and [r["eval_shard"] for r in ranks] == [2, 3],
+              f"ddp (b) eval: {r0['eval']}, {r1['eval']}, shards "
+              f"{[r['eval_shard'] for r in ranks]}")
+        files = {r: sorted(os.path.relpath(os.path.join(d, f), tmp)
+                           for d, _, fl in os.walk(os.path.join(tmp, f"out{r}")) for f in fl)
+                 for r in range(DDP_WORLD)}
+        check(files == {0: ["out0/logs/ddp.log", "out0/model_step_2.cpt"], 1: []},
+              f"ddp (b): only rank 0 writes: {files}")
+
+        shapes = DeepLabv3plus(n_classes=3, dtype=torch.bfloat16, device="cpu", seed=333)
+        psizes = [p.numel() for p in shapes.parameters()]
+        ssizes = [b.numel() for b in running_stats(shapes)]
+        del shapes
+
+        emu = [ddp_emulate(), ddp_emulate()]
+        bf16 = ddp_emulate(torch.Generator(device="cuda").manual_seed(7))
+        errs = {}
+        for step in range(DDP_STEPS):
+            ranked = torch.load(os.path.join(tmp, f"rank0_step{step}.pt"))
+            ref = emu[0][step]
+            for name, sizes in (("params", psizes), ("stats", ssizes)):
+                errs[f"{name}_step{step + 1}"] = {
+                    "ranks": ddp_errors(ranked[name], ref[name], sizes),
+                    "spread": ddp_errors(emu[1][step][name], ref[name], sizes),
+                    "bf16_inputs": ddp_errors(bf16[step][name], ref[name], sizes)}
+            for k in ("loss", "iou"):
+                want = ref["metrics"][k]
+                errs[f"{k}_step{step + 1}"] = {
+                    key: abs(m - want) / max(abs(want), 1e-30) for key, m in (
+                        ("ranks", r0["steps"][step]["metrics"][k]),
+                        ("spread", emu[1][step]["metrics"][k]),
+                        ("bf16_inputs", bf16[step]["metrics"][k]))}
+            errs[f"rank0_own_stats_step{step + 1}"] = {
+                "vs_mean": ddp_errors(ref["rank0_stats"], ref["stats"], ssizes)}
+        for key, e in errs.items():
+            if "ranks" not in e:
+                continue
+            limit = DDP_SPREAD * e["spread"]
+            check(e["ranks"] <= limit, f"ddp (b) {key}: ranks vs emulation {e['ranks']} > "
+                                       f"{DDP_SPREAD} x spread {e['spread']}")
+            check(limit < e["bf16_inputs"] or e["bf16_inputs"] == 0.0 == limit,
+                  f"ddp (b) {key}: limit {limit} not below bf16's own {e['bf16_inputs']}")
+        # the running statistics are the ranks' mean, not rank 0's own
+        for step in range(1, DDP_STEPS + 1):
+            own, mean = errs[f"rank0_own_stats_step{step}"], errs[f"stats_step{step}"]
+            check(own["vs_mean"] > max(DDP_SPREAD * mean["spread"], mean["ranks"]),
+                  f"ddp (b) step {step}: rank 0's own statistics {own} are not told "
+                  f"apart from the mean {mean}")
+        result["world2_gloo_one_card"] = {
+            "wall_s": wall, "ranks": ranks, "errors": errs, "spread_factor": DDP_SPREAD,
+            "eval": r0["eval"], "files": files,
+            "note": "gloo stages CUDA tensors through the host: its step time says "
+                    "nothing about scaling"}
+    return result
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one card",
@@ -1072,6 +1600,8 @@ def main():
         return 2
     check(layers.bn_fold_active() and layers.fused_stats_active()
           and layers.boundary_fold_active(), "the default configuration is not active")
+    if len(sys.argv) == 3 and sys.argv[1] == "--ddp-child":  # a process of the ddp phase
+        return ddp_child(json.loads(sys.argv[2]))
 
     # 1. device
     smi = nvidia_smi_line()
@@ -1097,6 +1627,14 @@ def main():
     emit({"phase": "tensor_maps", "encode_us_per_map": map_us,
           "maps_per_train_step": UNITS_PER_STEP * 5,
           "ms_per_train_step": map_us * UNITS_PER_STEP * 5 / 1e3})
+    # host cost of the device guard around each of a train step's 120 launches
+    guard = launch_guard_us(build)
+    emit({"phase": "launch_guard", "us_per_launch": guard,
+          "launches_per_train_step": UNITS_PER_STEP * 2,
+          "guard_ms_per_train_step": (guard["always_guarded"] - guard["unguarded"])
+          * UNITS_PER_STEP * 2 / 1e3,
+          "launch_minus_unguarded_ms_per_train_step": (guard["launch"] - guard["unguarded"])
+          * UNITS_PER_STEP * 2 / 1e3})
 
     # 4. every fused unit of one full-resolution step against the plain version
     batch = STEP_BATCH
@@ -1211,7 +1749,12 @@ def main():
     emit({"phase": "cli", **cli, "slice_step_ms_batch4": slice_default["ms_per_step"],
           "device": kind, "nvidia_smi": smi})
 
-    # 10. each launch of both kernels on its own, at the headline shapes, and
+    # 10. data parallelism: (a) world 1 on NCCL through the CLI, (b) two
+    # gloo ranks on the one card against their emulation in this process
+    ddp = ddp_phase(fs, cli)
+    emit({"phase": "ddp", **ddp, "device": kind, "nvidia_smi": smi})
+
+    # 11. each launch of both kernels on its own, at the headline shapes, and
     # one profiled training step
     split_phase(fs, rows, splits)
     del splits

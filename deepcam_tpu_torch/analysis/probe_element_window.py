@@ -20,7 +20,7 @@ import ctypes
 
 import torch
 
-from ..ops.build import library
+from ..ops.build import launch, library
 
 # The probe's shape: (N, H + 2D, W, C) fp32, row tile TH, halo D.
 PROBE_SHAPE = (2, 18, 72, 728)
@@ -65,10 +65,8 @@ def row_windows_kernel(xp: torch.Tensor, th: int, d: int) -> torch.Tensor:
     if t < 1 or th < 1 or d < 0:
         raise ValueError(f"row_windows: no window of {win} rows in {rows}")
     out = torch.empty((n, t, win, w, c), dtype=xp.dtype, device=xp.device)
-    rc = _lib()(xp.data_ptr(), out.data_ptr(), n, rows, w, c, th, win, t,
-                torch.cuda.current_stream(xp.device).cuda_stream)
-    if rc:
-        raise RuntimeError(f"row_windows launch failed: CUDA error {rc}")
+    launch("row_windows", _lib(), xp.device, xp.data_ptr(), out.data_ptr(), n, rows, w, c,
+           th, win, t)
     LAUNCHES["row_windows"] += 1
     return out
 

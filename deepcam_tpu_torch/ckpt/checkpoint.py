@@ -14,8 +14,10 @@ every ``save_frequency`` steps as ``<prefix>_step_<N>.cpt``:
   (``tools/import_torch_checkpoint.py``) reads it.
 
 The LR schedule is a function of the optimizer's update count, which the
-state's ``step`` entries carry, so no scheduler state is saved.  One
-process writes; multi-GPU runs are a later slice.
+state's ``step`` entries carry, so no scheduler state is saved.  Under a
+process group rank 0 alone writes (the ranks' states are identical after
+every step), and the other ranks take no snapshot at all; every rank
+restores from the file onto its own device.
 
 ``AsyncCheckpointWriter`` takes the CPU snapshot on the calling thread (the
 state keeps changing in place once the loop goes on) and writes the file on
@@ -32,6 +34,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..core.mesh import get_rank
 from ..tools.ref_names import is_parameter, reference_names
 from ..train.trainer import TrainState
 
@@ -76,7 +79,9 @@ def _write(path: str, payload: dict) -> None:
 
 
 def save_checkpoint(path: str, state: TrainState, epoch: int) -> None:
-    _write(path, snapshot(state, epoch))
+    """Writes the checkpoint from rank 0; a no-op on the other ranks."""
+    if get_rank() == 0:
+        _write(path, snapshot(state, epoch))
 
 
 def restore_checkpoint(path: str, state: TrainState) -> Tuple[TrainState, int]:
@@ -122,6 +127,10 @@ class AsyncCheckpointWriter:
         self._error: Optional[BaseException] = None
 
     def save(self, path: str, state: TrainState, epoch: int) -> None:
+        """Snapshots ``state`` and starts its write, on rank 0; a no-op on
+        the other ranks."""
+        if get_rank() != 0:
+            return
         self.wait()  # one save in flight; keeps publish order
         payload = snapshot(state, epoch)
 

@@ -2,13 +2,18 @@
 ``deepcam_tpu/cli/train.py``).
 
     python -m deepcam_tpu_torch.cli.train --data_dir_prefix <root> ...
+    torchrun --nproc_per_node N -m deepcam_tpu_torch.cli.train --device cuda ...
 
 Emits the reference's MLPerf key contract, uses its seeds and
 hyperparameters, stops at the same criterion (validation mean IoU >=
 ``--target_iou``) and writes ``<prefix>_step_<N>.cpt`` checkpoints in the
-reference's schema.  One process drives one device (``--device``, CUDA by
-default; the CPU runs the kernels' plain versions); multi-GPU data
-parallelism is a later slice.
+reference's schema.  Each process drives one device (``--device``, CUDA by
+default, where ``cuda`` means ``cuda:LOCAL_RANK``; the CPU runs the
+kernels' plain versions).  Under torchrun the processes form one
+data-parallel group (``core/mesh.py``): each reads its shard of the
+datasets, the global batch is ``--local_batch_size`` times the world size,
+validation counts every sample once over uneven shards, and rank 0 alone
+writes the MLPerf log and the checkpoints.
 
 ``main(pargs)`` builds the HDF5 datasets and calls ``train_loop(pargs,
 train_set, validation_set)``, which takes any pair of ``CamDataset``s (for
@@ -47,8 +52,11 @@ def build_parser() -> ap.ArgumentParser:
     AP = ap.ArgumentParser(description="DeepCAM training (PyTorch/CUDA port)")
     AP.add_argument("--wireup_method", type=str, default="auto",
                     choices=["auto", "jax", "dummy"],
-                    help="Distributed wireup: one process per device here; "
-                         "'jax' is the TPU wireup and raises")
+                    help="auto: join a process group (NCCL for a CUDA --device, "
+                         "gloo for the CPU) when torchrun's variables WORLD_SIZE, "
+                         "RANK, LOCAL_RANK, MASTER_ADDR and MASTER_PORT are set, "
+                         "else run one process; dummy: never; jax is the TPU "
+                         "wireup and raises")
     AP.add_argument("--run_tag", type=str, default="deepcam-tpu")
     AP.add_argument("--output_dir", type=str, default="./output")
     AP.add_argument("--checkpoint", type=str, default=None)
@@ -125,9 +133,6 @@ def check_supported(pargs) -> None:
     bad = [k for k, v in refused.items() if v]
     if bad:
         raise NotImplementedError("the PyTorch port does not take: " + "; ".join(bad))
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError("multi-GPU data parallelism is not ported yet")
 
 
 @dataclass
@@ -155,14 +160,16 @@ def compute_dtype(amp_opt_level: str) -> torch.dtype:
 
 def make_datasets(pargs, dataset_cls=None):
     """(train_set, validation_set) under ``--data_dir_prefix``, as the
-    CLI shards and normalizes them.  ``dataset_cls`` defaults to the HDF5
+    CLI shards and normalizes them: this rank's shard of the process group
+    (all of it without one).  ``dataset_cls`` defaults to the HDF5
     ``CamDataset``."""
+    from ..core.mesh import get_rank, get_size
     from ..data.dataset import CamDataset
 
     cls = dataset_cls or CamDataset
     root = pargs.data_dir_prefix
     statsfile = os.path.join(root, "stats.h5")
-    common = dict(channels=pargs.channels, comm_size=1, comm_rank=0,
+    common = dict(channels=pargs.channels, comm_size=get_size(), comm_rank=get_rank(),
                   bf16_out=compute_dtype(pargs.amp_opt_level) == torch.bfloat16)
     train_set = cls(os.path.join(root, "train"), statsfile,
                     allow_uneven_distribution=False, shuffle=True, **common)
@@ -173,18 +180,80 @@ def make_datasets(pargs, dataset_cls=None):
 
 
 def main(pargs) -> dict:
-    from .. import resolve_device
+    """Joins the process group (``--wireup_method``), builds this rank's
+    datasets and trains; leaves the group if it joined it."""
+    from ..core.mesh import destroy_distributed, device_for, init_distributed
 
     check_supported(pargs)
-    resolve_device(pargs.device)
-    return train_loop(pargs, *make_datasets(pargs)).metrics
+    created = init_distributed(pargs.wireup_method, device_for(pargs.device))
+    try:
+        return train_loop(pargs, *make_datasets(pargs)).metrics
+    finally:
+        if created:
+            destroy_distributed()
+
+
+def validate(state, eval_step, loader, device, budget=None):
+    """One validation over this rank's shard, ``loader.dataset``, in eval
+    calls of ``loader.batch_size``: ``(count, loss_sum, iou_sum)`` summed over
+    the process group's ranks in float64, the same on every rank.
+
+    ``budget`` caps the samples each rank evaluates.  Every rank issues the
+    same number of calls: a shorter shard (the last rank takes the remainder
+    of an uneven split) pads with ``valid=0`` batches, and a trailing partial
+    batch is padded the same way, so each sample counts once.  Batches go to
+    the card while the previous eval step runs, and the partials stay there
+    until one sum over calls and ranks and one fetch at the end."""
+    from ..data.pipeline import prefetch_to_device
+    from ..parallel.collectives import allreduce_sum_
+
+    ds, eval_batch = loader.dataset, loader.batch_size
+    comm_size = max(ds.comm_size, 1)
+    max_local = ds.global_size // comm_size + ds.global_size % comm_size
+    n_calls = -(-max_local // eval_batch)
+    if budget is not None:
+        n_calls = min(n_calls, -(-budget // eval_batch))
+    dtype = torch.bfloat16 if ds.bf16_out else torch.float32
+
+    def host_batches():
+        seen_local = 0
+        it = iter(loader)
+        try:
+            for _ in range(n_calls):
+                batch = next(it, None)
+                if batch is None:  # a shard with fewer batches: pad-only
+                    yield (torch.zeros((eval_batch,) + ds.data_shape, dtype=dtype),
+                           torch.zeros((eval_batch,) + ds.label_shape, dtype=torch.int32),
+                           torch.zeros((eval_batch,), dtype=torch.float32))
+                    continue
+                data, label, _ = batch
+                n = data.shape[0]
+                valid = torch.ones((n,), dtype=torch.float32)
+                if budget is not None and seen_local + n > budget:
+                    valid[max(0, budget - seen_local):] = 0.0
+                if n < eval_batch:  # pad the trailing partial batch
+                    pad = eval_batch - n
+                    data = torch.cat([data, data.new_zeros((pad,) + data.shape[1:])])
+                    label = torch.cat([label, label.new_zeros((pad,) + label.shape[1:])])
+                    valid = torch.cat([valid, valid.new_zeros((pad,))])
+                seen_local += n
+                if budget is not None:
+                    seen_local = min(seen_local, budget)
+                yield data, label, valid
+        finally:
+            it.close()  # a budget can stop before the loader's end
+
+    partials = [torch.stack(eval_step(state, d, lb, v))
+                for d, lb, v in prefetch_to_device(host_batches(), device)]
+    return tuple(allreduce_sum_(torch.stack(partials).double().sum(0)).tolist())
 
 
 def train_loop(pargs, train_set, validation_set) -> LoopResult:
-    """The training run of ``cli/train.py:main`` over the given datasets."""
-    from .. import resolve_device
+    """The training run of ``cli/train.py:main`` over the given datasets,
+    which are this rank's shards of the process group in place (if any)."""
     from ..ckpt.checkpoint import (AsyncCheckpointWriter, checkpoint_path,
                                    restore_checkpoint, save_checkpoint)
+    from ..core.mesh import device_for, get_rank, get_size
     from ..data.pipeline import DataLoader, prefetch_to_device
     from ..models.deeplab import DeepLabv3plus
     from ..obs.mlperf_log import MLPerfLogger
@@ -194,8 +263,12 @@ def train_loop(pargs, train_set, validation_set) -> LoopResult:
     from ..train.trainer import create_train_state, make_eval_step, make_train_step
 
     check_supported(pargs)
-    device = resolve_device(pargs.device)
-    n_replicas = 1
+    device = device_for(pargs.device)
+    n_replicas, rank = get_size(), get_rank()
+    for ds in (train_set, validation_set):
+        if (ds.comm_size, ds.comm_rank) != (n_replicas, rank):
+            raise ValueError(f"a dataset sharded as rank {ds.comm_rank} of {ds.comm_size} "
+                             f"in a process group of {n_replicas} at rank {rank}")
 
     pargs.logging_frequency = max(pargs.logging_frequency, 1)
     log_file = os.path.normpath(os.path.join(pargs.output_dir, "logs", pargs.run_tag + ".log"))
@@ -206,7 +279,8 @@ def train_loop(pargs, train_set, validation_set) -> LoopResult:
         seed = pargs.seed
         logger.log_event(key="seed", value=seed)
         torch.manual_seed(seed)
-        os.makedirs(pargs.output_dir, exist_ok=True)
+        if rank == 0:
+            os.makedirs(pargs.output_dir, exist_ok=True)
 
         global_batch_size = pargs.local_batch_size * n_replicas
         logger.log_event(key="global_batch_size", value=global_batch_size)
@@ -271,58 +345,14 @@ def train_loop(pargs, train_set, validation_set) -> LoopResult:
             logger.log_start(key="eval_start", metadata={"epoch_num": epoch + 1})
             # the reference's batch-1 loop breaks only AFTER processing
             # sample max_validation_steps+1 (a post-increment check): a
-            # per-rank sample budget, whatever the eval batch
+            # per-rank sample budget, whatever the eval batch (the JAX CLI
+            # multiplies it by the replicas of its process: here one); every
+            # rank reads the same totals, and so takes the same stop decision
             budget = None
             if pargs.max_validation_steps is not None:
-                budget = (pargs.max_validation_steps + 1) * n_replicas
-            comm_size = max(validation_set.comm_size, 1)
-            base = validation_set.global_size // comm_size
-            max_local = base + validation_set.global_size % comm_size
-            n_calls = -(-max_local // eval_batch)
-            if budget is not None:
-                n_calls = min(n_calls, -(-budget // eval_batch))
-
-            def host_batches():
-                seen_local = 0
-                it = iter(validation_loader)
-                try:
-                    for _ in range(n_calls):
-                        batch = next(it, None)
-                        if batch is None:  # a shard with fewer batches: pad-only
-                            h, w = validation_set.data_shape[:2]
-                            yield (torch.zeros((eval_batch, h, w, len(pargs.channels)),
-                                               dtype=dtype),
-                                   torch.zeros((eval_batch, h, w), dtype=torch.int32),
-                                   torch.zeros((eval_batch,), dtype=torch.float32))
-                            continue
-                        data, label, _ = batch
-                        n = data.shape[0]
-                        valid = torch.ones((n,), dtype=torch.float32)
-                        if budget is not None and seen_local + n > budget:
-                            valid[max(0, budget - seen_local):] = 0.0
-                        if n < eval_batch:  # pad the trailing partial batch
-                            pad = eval_batch - n
-                            data = torch.cat([data, data.new_zeros((pad,) + data.shape[1:])])
-                            label = torch.cat([label,
-                                               label.new_zeros((pad,) + label.shape[1:])])
-                            valid = torch.cat([valid, valid.new_zeros((pad,))])
-                        seen_local += n
-                        if budget is not None:
-                            seen_local = min(seen_local, budget)
-                        yield data, label, valid
-                finally:
-                    it.close()  # a budget can stop before the loader's end
-
-            # batches go to the card while the previous eval step runs, and
-            # the (count, loss, iou) partials stay on the card until one
-            # fetch at the end
-            partials = [torch.stack(eval_step(state, d, lb, v))
-                        for d, lb, v in prefetch_to_device(host_batches(), device)]
-            count = loss_sum = iou_sum = 0.0
-            for c, ls, isum in torch.stack(partials).cpu().double().tolist():
-                count += c
-                loss_sum += ls
-                iou_sum += isum
+                budget = pargs.max_validation_steps + 1
+            count, loss_sum, iou_sum = validate(state, eval_step, validation_loader, device,
+                                                budget)
             loss_avg_val = loss_sum / max(count, 1.0)
             iou_avg_val = iou_sum / max(count, 1.0)
             logger.log_event(key="eval_accuracy", value=iou_avg_val,

@@ -5,12 +5,11 @@
     "POINT_IN_TIME"|"INTERVAL_START"|"INTERVAL_END", "key": "...",
     "value": ..., "metadata": {"file": "...", "lineno": N}}
 
-* rank-0-only emission (the rank is ``torch.distributed``'s where a process
-  group is initialised, else 0);
+* rank-0-only emission (the rank is the process group's, ``core/mesh.py``,
+  else 0);
 * ``sync=True`` runs the barrier before the timestamp, as the reference
   does for timed keys such as run_start and run_stop; the barrier is
-  ``torch.distributed.barrier`` where a process group is initialised and a
-  no-op in one process;
+  ``parallel/collectives.py:barrier``, a no-op without a process group;
 * the constructor writes the submission header (benchmark, org,
   division=closed, status=onprem, platform=<N>x placeholder) and creates
   the log directory on rank 0.
@@ -24,18 +23,8 @@ import sys
 import time
 from typing import Any, Optional
 
-import torch
-
-
-def _dist():
-    dist = torch.distributed
-    return dist if dist.is_available() and dist.is_initialized() else None
-
-
-def _barrier():
-    dist = _dist()
-    if dist is not None:
-        dist.barrier()
+from ..core.mesh import get_rank, get_size
+from ..parallel import collectives
 
 
 class MLPerfLogger:
@@ -44,12 +33,11 @@ class MLPerfLogger:
     def __init__(self, filename: str, benchmark: str = "deepcam",
                  organization: str = "deepcam_tpu", platform: Optional[str] = None,
                  stdout: bool = False, barrier_fn=None):
-        dist = _dist()
-        self.comm_rank = dist.get_rank() if dist is not None else 0
-        self.comm_size = dist.get_world_size() if dist is not None else 1
+        self.comm_rank = get_rank()
+        self.comm_size = get_size()
         self.filename = filename
         self.stdout = stdout
-        self._barrier_fn = barrier_fn or _barrier
+        self._barrier_fn = barrier_fn or collectives.barrier
         self._fh = None
 
         logdir = os.path.dirname(filename)

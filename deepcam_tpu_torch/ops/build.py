@@ -79,6 +79,27 @@ def build(names=SOURCES) -> float:
     return time.perf_counter() - t0
 
 
+def launch(name: str, fn, device, *args) -> None:
+    """Calls a kernel's C entry ``fn(*args, stream)`` with ``device`` (the
+    CUDA device of its tensors) as the current device, and that device's
+    current stream.  The C side launches on the current device
+    (``cudaGetDevice``), so without this a rank on ``cuda:1`` whose current
+    device was never set would launch onto device 0 with device-1 pointers.
+    The device guard is entered only when ``device`` is not already the
+    current one, which spares its host cost on every launch of a process
+    that set its device.  Raises on a nonzero CUDA error code."""
+    import torch
+
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index == torch.cuda.current_device():
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, stream)
+    if rc:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     lib = _LIBS.get(name)

@@ -54,7 +54,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from .build import library
+from .build import launch, library
 
 # Launches of each kernel wrapper since the last reset.  A wrapper adds one
 # where it launches its kernel(s), nowhere else.
@@ -332,10 +332,6 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -358,12 +354,10 @@ def sepconv_fwd(x, dwk, pwk, pre_relu: bool, dilation: int, emit_d: bool, *, a=N
         buf = torch.empty((nparts + nscratch, 2, f), dtype=torch.float32, device=dev)
         spart, sscratch = buf[:nparts], (buf[nparts:] if nscratch else None)
         stats = torch.empty((2, f), dtype=torch.float32, device=dev)
-    rc = _fwd_lib()(x.data_ptr(), dwk.data_ptr(), pwk.data_ptr(), _ptr(a), _ptr(b),
-                    _ptr(skip), y.data_ptr(), _ptr(d), _ptr(r), _ptr(spart), _ptr(sscratch),
-                    _ptr(stats), n, h, w, c, f, dilation, int(pre_relu), plan.tiles,
-                    plan.mode, plan.stages, _stream(x))
-    if rc:
-        raise RuntimeError(f"sepconv_fwd launch failed: CUDA error {rc}")
+    launch("sepconv_fwd", _fwd_lib(), dev, x.data_ptr(), dwk.data_ptr(), pwk.data_ptr(),
+           _ptr(a), _ptr(b), _ptr(skip), y.data_ptr(), _ptr(d), _ptr(r), _ptr(spart),
+           _ptr(sscratch), _ptr(stats), n, h, w, c, f, dilation, int(pre_relu), plan.tiles,
+           plan.mode, plan.stages)
     LAUNCHES["sepconv_fwd"] += 1
     FORM_LAUNCHES["sepconv_fwd"][form_name(a is not None, skip is not None, emit_stats)] += 1
     return FwdOut(y, d, r, stats)
@@ -460,15 +454,12 @@ def sepconv_bwd(x, g, dwk, pwk, d, pre_relu: bool, dilation: int, *, a=None, b=N
     sizes = (p * c, plan.dx_blocks * rows * c, plan.splits * c * f)
     scratch = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
     dd, ddw_part, dpw_part = scratch.split(sizes)
-    rc = _bwd_lib()(x.data_ptr(), g.data_ptr(), dwk.data_ptr(), pwk.data_ptr(),
-                    d.data_ptr(), _ptr(a), _ptr(b), _ptr(skip), _ptr(gr), _ptr(y),
-                    _ptr(gs1), _ptr(gs2), dx.data_ptr(), _ptr(dskip), dwab.data_ptr(),
-                    dpw.data_ptr(), dd.data_ptr(), ddw_part.data_ptr(),
-                    dpw_part.data_ptr(), n, h, w, c, f, dilation, int(pre_relu),
-                    plan.dx_tiles, plan.dd_stages, plan.dpw_stages, plan.splits, plan.chunk,
-                    _stream(x))
-    if rc:
-        raise RuntimeError(f"sepconv_bwd launch failed: CUDA error {rc}")
+    launch("sepconv_bwd", _bwd_lib(), dev, x.data_ptr(), g.data_ptr(), dwk.data_ptr(),
+           pwk.data_ptr(), d.data_ptr(), _ptr(a), _ptr(b), _ptr(skip), _ptr(gr), _ptr(y),
+           _ptr(gs1), _ptr(gs2), dx.data_ptr(), _ptr(dskip), dwab.data_ptr(),
+           dpw.data_ptr(), dd.data_ptr(), ddw_part.data_ptr(), dpw_part.data_ptr(),
+           n, h, w, c, f, dilation, int(pre_relu), plan.dx_tiles, plan.dd_stages,
+           plan.dpw_stages, plan.splits, plan.chunk)
     LAUNCHES["sepconv_bwd"] += 1
     FORM_LAUNCHES["sepconv_bwd"][form_name(a is not None, skip is not None, y is not None)] += 1
     da, db = (dwab[9], dwab[10]) if a is not None else (None, None)

@@ -131,6 +131,24 @@ def test_async_writer_raises_the_worker_error(tmp_path):
     writer.wait()  # the error is raised once
 
 
+def test_only_rank_0_writes(tmp_path, monkeypatch):
+    """Under a process group rank 0 alone writes, sync or async, and the
+    other ranks take no snapshot."""
+    from deepcam_tpu_torch.ckpt import checkpoint
+
+    def no_snapshot(*args):
+        raise AssertionError("a rank other than 0 took a snapshot")
+
+    monkeypatch.setattr(checkpoint, "get_rank", lambda: 1)
+    monkeypatch.setattr(checkpoint, "snapshot", no_snapshot)
+    state = _state()
+    save_checkpoint(str(tmp_path / "sync.cpt"), state, epoch=0)
+    writer = AsyncCheckpointWriter()
+    writer.save(str(tmp_path / "async.cpt"), state, epoch=0)
+    writer.wait()
+    assert writer._thread is None and os.listdir(tmp_path) == []
+
+
 def test_name_map_raises_on_an_unassigned_tensor():
     model = DeepLabv3plus(3, dtype=torch.float32, device="cpu", seed=1)
     model.xception.block4.register_buffer("extra", torch.zeros(1))

@@ -14,6 +14,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "deepcam_tpu_torch"
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "optax", "deepcam_tpu")
+# the data-parallel modules: the process-group wireup and the collectives
+DIST_MODULES = ("deepcam_tpu_torch.core.mesh", "deepcam_tpu_torch.parallel.collectives")
 
 PROBE = """
 import importlib, pkgutil, sys
@@ -23,6 +25,7 @@ for m in pkgutil.walk_packages(deepcam_tpu_torch.__path__, "deepcam_tpu_torch.")
 import chip_smoke
 bad = sorted(m for m in sys.modules if m.split(".")[0] in {roots!r})
 print("MODULES", len([m for m in sys.modules if m.startswith("deepcam_tpu_torch")]))
+print("LOADED", sorted(m for m in sys.modules if m.startswith("deepcam_tpu_torch")))
 print("BAD", bad)
 """
 
@@ -35,6 +38,8 @@ def test_importing_the_port_loads_no_jax():
     assert out.returncode == 0, out.stderr
     lines = dict(line.split(" ", 1) for line in out.stdout.strip().splitlines())
     assert int(lines["MODULES"]) >= 15
+    for name in DIST_MODULES:
+        assert repr(name) in lines["LOADED"], name
     assert lines["BAD"] == "[]", lines["BAD"]
 
 
@@ -42,6 +47,8 @@ def test_port_sources_name_no_jax():
     imp = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|deepcam_tpu)\b", re.M)
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) >= 15
+    for name in DIST_MODULES:
+        assert ROOT / (name.replace(".", "/") + ".py") in files, name
     for f in files:
         text = f.read_text()
         assert not imp.search(text), f

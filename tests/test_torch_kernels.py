@@ -317,3 +317,82 @@ def test_ragged_shapes_match_plain_on_card(form, n, h, w, c, f, dil):
         if a is not None:
             err = (a.float() - b.float()).abs().max().item()
             assert err <= tol * b.float().abs().max().item(), (name, err)
+
+
+def test_launches_run_on_the_tensors_device(monkeypatch):
+    """``build.launch`` makes the tensors' device the current one around the
+    C call and passes that device's stream: the C side launches on the
+    current device.  The guard is entered when another device is current,
+    and skipped when the tensors' device already is.  Checked with a
+    recording guard, as the CPU has no card; and every kernel wrapper
+    launches through it."""
+    import inspect
+
+    from deepcam_tpu_torch.ops import build
+
+    events = []
+
+    class Guard:
+        def __init__(self, device):
+            self.device = device
+
+        def __enter__(self):
+            events.append(("enter", self.device))
+
+        def __exit__(self, *exc):
+            events.append(("exit", self.device))
+
+    class Stream:
+        def __init__(self, device):
+            self.cuda_stream = 1000 + device.index
+
+    current = [0]
+    monkeypatch.setattr(torch.cuda, "device", Guard)
+    monkeypatch.setattr(torch.cuda, "current_stream", Stream)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current[0])
+    dev = torch.device("cuda", 1)
+
+    def kernel(*args):
+        events.append(("call", args))
+        return 0
+
+    build.launch("k", kernel, dev, 7, 8)
+    assert events == [("enter", dev), ("call", (7, 8, 1001)), ("exit", dev)]
+    events.clear()
+    current[0] = 1
+    build.launch("k", kernel, dev, 7, 8)
+    assert events == [("call", (7, 8, 1001))]
+    with pytest.raises(RuntimeError, match="k launch failed: CUDA error 700"):
+        build.launch("k", lambda *args: 700, dev)
+    for fn, name in ((fs.sepconv_fwd, "sepconv_fwd"), (fs.sepconv_bwd, "sepconv_bwd"),
+                     (pw.row_windows_kernel, "row_windows")):
+        src = inspect.getsource(fn)
+        assert f'launch("{name}", ' in src and "cuda_stream" not in src, name
+
+
+@pytest.mark.gpu
+def test_a_second_card_launches_on_its_own_device():
+    """Tensors on cuda:1 while cuda:0 is the current device: the forms run
+    on cuda:1 and match their plain version there."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    gen = torch.Generator(device="cuda:1").manual_seed(4)
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return (scale * torch.randn(*shape, generator=gen, device="cuda:1") + shift).bfloat16()
+
+    x, g = rnd(2, 24, 36, 728), rnd(2, 24, 36, 728)
+    dwk, pwk = rnd(3, 3, 728, scale=0.3), rnd(728, 728, scale=728 ** -0.5)
+    a, b = rnd(728, scale=0.2, shift=1.0), rnd(728, scale=0.1)
+    with torch.cuda.device(0):
+        out = fs.sepconv_fwd(x, dwk, pwk, True, 1, True, a=a, b=b, emit_stats=True)
+        got = fs.sepconv_bwd(x, g, dwk, pwk, out.d, True, 1, a=a, b=b)
+        torch.cuda.synchronize(1)
+    ref = fs.sepconv_fwd_plain(x, dwk, pwk, True, 1, a=a, b=b, emit_stats=True)
+    want = fs.sepconv_bwd_plain(x, g, dwk, pwk, ref.d, True, 1, a=a, b=b)
+    assert out.y.device == got.dx.device == torch.device("cuda", 1)
+    torch.testing.assert_close(out.d, ref.d, rtol=0, atol=0)
+    for name, u, v in (("y", out.y, ref.y), ("dx", got.dx, want.dx),
+                       ("ddw", got.ddw, want.ddw), ("dpw", got.dpw, want.dpw)):
+        err = (u.float() - v.float()).abs().max().item()
+        assert err <= CARD_TOL[name] * v.float().abs().max().item(), (name, err)

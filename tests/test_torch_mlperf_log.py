@@ -73,6 +73,21 @@ def test_wire_format_and_barrier(tmp_path):
         json.loads(line[len(":::MLLOG "):])
 
 
+def test_default_barrier_is_the_collectives_barrier(tmp_path, monkeypatch):
+    """Without ``barrier_fn`` the logger's barrier is
+    ``parallel/collectives.py:barrier``: the constructor's and each
+    ``sync=True`` key's."""
+    from deepcam_tpu_torch.parallel import collectives
+
+    calls = []
+    monkeypatch.setattr(collectives, "barrier", lambda: calls.append(1))
+    logger = MLPerfLogger(str(tmp_path / "b.log"))
+    logger.log_event(key="cache_clear")
+    logger.log_start(key="run_start", sync=True)
+    logger.close()
+    assert len(calls) == 2
+
+
 def test_default_barrier_is_a_no_op_in_one_process(tmp_path):
     logger = MLPerfLogger(str(tmp_path / "x.log"))
     logger.log_start(key="run_start", sync=True)  # no process group: returns
