@@ -108,8 +108,23 @@ otherwise.  Phases, each printing JSON lines:
 11. split  — at the affine_stats middle and exit shapes and the stats
    entry shape, each launch of both kernels timed on its own; and one
    default-configuration training step (batch 4, after a warm-up) with the
-   card's time by kernel.  Both with torch.profiler, and last: once the
-   profiler has run, launches stay traced and slower.
+   card's time by kernel, read through ``profiling/op_table.py``.  Both
+   with torch.profiler: once the profiler has run, launches stay traced and
+   slower, so only the profile phase comes after.
+12. profile — the profiling entry point (``cli/profile.py:main``) at its
+   defaults, full width (768, 1152, 16), local batch 2, AdamW, bf16, 1
+   warm-up and 4 profiled steps, with the counters zeroed just before and
+   read just after: (A) without a trace, (B) with ``--profile Backward``.
+   Each step's Forward launches the forward kernel 60 times and its
+   Backward the backward kernel 60 times.  It prints the REPORT lines, the
+   phase means, FLOPs and bytes, the roofline and the FLOPs per sample
+   beside bench.py's 2.7 TFLOP; from (B)'s newest trace the op tables per
+   step (``profiling/op_profile.py``) and the unattributed share, and it
+   checks that trace: 60 of each backward kernel (the wrapper's count over
+   the step), no forward kernel, a module scope on every sepconv kernel,
+   device time within the region's wall time, achieved TFLOP/s between 0
+   and the peak.  (B)'s means beside (A)'s are the profiler's cost.  The
+   traces go to a temporary directory, removed after the phase.
 
 Then the ``kernels`` JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script then
@@ -189,6 +204,11 @@ MLLOG_INIT = ["init_start", "cache_clear", "seed", "global_batch_size", "opt_nam
               "opt_base_learning_rate", "opt_learning_rate_warmup_steps",
               "opt_learning_rate_warmup_factor", "opt_epsilon", "train_samples",
               "eval_samples", "init_stop", "run_start"]
+# profile phase: cli/profile.py at its defaults ((768, 1152, 16), local batch
+# 2, AdamW, O1), 1 warm-up and 4 profiled steps; bench.py's analytic count
+# of a training step's work per sample, forward plus backward
+PROFILE_WARMUP, PROFILE_STEPS = 1, 4
+BENCH_TFLOP_PER_SAMPLE = 2.7
 # one LAMB update of the whole model, card against CPU (fp32, same gradients)
 LAMB_TOL = 1e-6
 # kernel against plain version: bf16 outputs relative to the largest value,
@@ -331,25 +351,15 @@ def form_operands(form):
 
 def unit_bounds(form, p, c, f):
     """(forward, backward) bounds of one unit of this form on p pixels,
-    C→F: each input read once and each output written once, the GEMMs on
-    the bf16 tensor cores and the rest in fp32."""
-    affine, skip, stats = form_operands(form)
-    act_c, act_f = 2 * p * c, 2 * p * f  # one bf16 tensor of width C, F
-    weights = 2 * (9 * c + c * f) + (4 * c if affine else 0)  # dwk, pwk[, a, b]
-    # forward: x[, skip] -> y, d[, r][, Σy, Σy²]
-    fwd_bytes = (act_c * (2 if skip else 1) + weights + act_f + act_c
-                 + (act_c if skip else 0) + (8 * f if stats else 0))
-    pro = p * c * ((2 if affine else 0) + (1 if skip else 0) + 1)  # FMA, add, relu
-    fwd_ops = [(2 * p * c * f, PEAK_BF16_TENSOR),
-               (2 * 9 * p * c + pro + (3 * p * f if stats else 0), PEAK_FP32)]
-    # backward: x, g, d[, skip, gr][, y, gs1, gs2] -> dx, d_dw, d_pw[, da, db][, d_skip]
-    bwd_bytes = (act_c * 3 + act_f + weights + (2 * act_c if skip else 0)
-                 + (act_f + 8 * f if stats else 0)
-                 + 4 * (9 * c + c * f) + (8 * c if affine else 0) + (act_c if skip else 0))
-    bwd_ops = [(4 * p * c * f, PEAK_BF16_TENSOR),
-               (4 * 9 * p * c + 2 * pro + (4 * p * f if stats else 0)
-                + (4 * p * c if affine else 0), PEAK_FP32)]
-    return bound(fwd_bytes, fwd_ops), bound(bwd_bytes, bwd_ops)
+    C→F, from the port's count of its work (``profiling/profiler.py:
+    unit_counts``: each input read once and each output written once), the
+    GEMMs on the bf16 tensor cores and the rest in fp32."""
+    from deepcam_tpu_torch.profiling.profiler import unit_counts
+
+    w = unit_counts(form, p, c, f)
+    return tuple(bound(w[f"{d}_bytes"], [(w[f"{d}_gemm_flops"], PEAK_BF16_TENSOR),
+                                         (w[f"{d}_other_flops"], PEAK_FP32)])
+                 for d in ("fwd", "bwd"))
 
 
 def rel_err(a, b):
@@ -540,8 +550,12 @@ def kernel_phase(fs):
 
 def step_profile(fs, step_fn, state, x, y):
     """One training step under torch.profiler: the card's busy time by
-    kernel (the 25 largest, and the fused units' share)."""
+    kernel (the 25 largest, and the fused units' share: the family
+    ``sepconv (hand-written)`` of the port's op table), read from the
+    step's Chrome trace through ``profiling/op_table.py``."""
     from torch.profiler import ProfilerActivity, profile
+
+    from deepcam_tpu_torch.profiling.op_table import load_device_ops, op_table
     state, _ = step_fn(state, x, y)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -549,17 +563,15 @@ def step_profile(fs, step_fn, state, x, y):
         step_fn(state, x, y)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    by_kernel = {}
-    for e in prof.key_averages():
-        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
-        if us and str(getattr(e, "device_type", "")).endswith("CUDA"):
-            by_kernel[e.key[:120]] = (us / 1e3, e.count)
-    busy = sum(ms for ms, _ in by_kernel.values())
-    fused = sum(ms for k, (ms, _) in by_kernel.items()
-                if any(n in k for n in KERNEL_NAMES[:5]))
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:25]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "step.pt.trace.json")
+        prof.export_chrome_trace(path)
+        table = op_table(load_device_ops(path))
+    busy = sum(table.column("time_ms"))
+    fused = sum(r["time_ms"] for r in table if r["category"] == "sepconv (hand-written)")
     return {"wall_ms_profiled": wall * 1e3, "device_busy_ms": busy,
-            "fused_sepconv_ms": fused, "top": [[k, ms, n] for k, (ms, n) in top]}
+            "fused_sepconv_ms": fused,
+            "top": [[r["name"][:120], r["time_ms"], r["invocations"]] for r in table[:25]]}
 
 
 def split_phase(fs, rows, splits):
@@ -1578,6 +1590,130 @@ def ddp_phase(fs, cli):
     return result
 
 
+def profile_run(fs, cli, out_dir, tag, extra):
+    """``cli/profile.py:main`` once at full width with the counters zeroed
+    just before and read just after; each Forward and Backward phase's
+    launches of its kernel, from the phase functions main calls (wrapped
+    here, restored after)."""
+    args = cli.build_parser().parse_args(
+        ["--num_warmup_steps", str(PROFILE_WARMUP), "--num_profile_steps", str(PROFILE_STEPS),
+         "--output_dir", out_dir, "--run_tag", tag, "--device", "cuda", *extra])
+    per_call = {"Forward": [], "Backward": []}
+    orig = cli.forward_loss, cli.backward
+
+    def counted(fn, phase, kernel):
+        def call(*a):
+            n0 = fs.LAUNCHES[kernel]
+            out = fn(*a)
+            per_call[phase].append(fs.LAUNCHES[kernel] - n0)
+            return out
+        return call
+
+    cli.forward_loss = counted(orig[0], "Forward", "sepconv_fwd")
+    cli.backward = counted(orig[1], "Backward", "sepconv_bwd")
+    torch.cuda.synchronize()
+    fs.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        report = cli.main(args)
+    finally:
+        cli.forward_loss, cli.backward = orig
+    seconds = time.perf_counter() - t0
+    launches = dict(fs.LAUNCHES)
+    steps = PROFILE_WARMUP + PROFILE_STEPS
+    for phase in per_call:  # the steps' calls come first, then the counts'
+        check(per_call[phase][:steps] == [UNITS_PER_STEP] * steps,
+              f"profile {tag}: {phase} launches per step {per_call[phase][:steps]}, "
+              f"want {UNITS_PER_STEP}")
+    return args, report, {"per_step": {k: v[:steps] for k, v in per_call.items()},
+                          "total": launches}, seconds
+
+
+def profile_phase(fs, smi, out_dir):
+    """The profiling entry point (``cli/profile.py``) at full width, twice:
+    (A) without a trace, (B) with ``--profile Backward``.  Prints the REPORT
+    lines (main does), the phase means, FLOPs and bytes, the roofline, the
+    FLOPs per sample beside bench.py's count; from (B)'s newest trace, the
+    op tables per step through ``profiling/op_profile.py``, and checks the
+    Backward trace: 60 launches of each backward kernel, equal to the
+    wrapper's count over the step, no forward kernel, a module scope on
+    every sepconv kernel, device time within the region's wall time, and
+    achieved TFLOP/s between 0 and the peak.  The traces go under
+    ``out_dir``."""
+    from deepcam_tpu_torch.cli import profile as cli
+    from deepcam_tpu_torch.profiling import op_profile
+    from deepcam_tpu_torch.profiling.op_table import (
+        category_table, find_trace, load_device_ops, op_table, per_step, scope_table,
+        unattributed_share)
+    from deepcam_tpu_torch.profiling.profiler import GPU_PEAKS
+
+    t_phase = time.perf_counter()
+    runs = {}
+    for tag, extra in (("A", []), ("B", ["--profile", "Backward"])):
+        args, report, launches, seconds = profile_run(fs, cli, out_dir, tag, extra)
+        batch = args.local_batch_size
+        per_sample = (report["Forward"]["flops"] + report["Backward"]["flops"]) / batch / 1e12
+        runs[tag] = {
+            "seconds": seconds, "launches": launches,
+            "mean_ms": {k: report[k]["mean_seconds"] * 1e3
+                        for k in ("Forward", "Backward", "Optimizer")},
+            "flops": {k: report[k]["flops"] for k in ("Forward", "Backward")},
+            "bytes_accessed": {k: report[k]["bytes_accessed"] for k in ("Forward", "Backward")},
+            "tflops_per_sec": {k: report[k]["tflops_per_sec"] for k in ("Forward", "Backward")},
+            "roofline": report["roofline"],
+            "fwd_bwd_tflop_per_sample": per_sample,
+            "bench_tflop_per_sample": BENCH_TFLOP_PER_SAMPLE,
+            "vs_bench": per_sample / BENCH_TFLOP_PER_SAMPLE}
+        emit({"phase": "profile", "run": tag, "flags": extra, "batch": batch,
+              "input": [batch, *args.image_size, len(args.channels)], **runs[tag],
+              "device": torch.cuda.get_device_name(0), "nvidia_smi": smi})
+        for k in ("Forward", "Backward"):
+            check(report[k]["flops"] > 0 and math.isfinite(report[k]["mean_seconds"]),
+                  f"profile {tag}: {k} report {report[k]}")
+        torch.cuda.empty_cache()
+
+    # (B): the newest trace, one Backward step
+    logdir = os.path.join(out_dir, "trace", "B")
+    ops = load_device_ops(logdir)
+    n = ops.attrs["n_steps"]
+    check(n == 1, f"profile B: {n} steps in the newest trace, want 1")
+    traced_step_launches = runs["B"]["launches"]["per_step"]["Backward"][-1]
+    counts = {k: sum(1 for r in ops if f"dsc::{k}" in r["name"])
+              for k in ("sepconv_fwd_kernel", "dd_kernel", "dx_ddw_kernel", "dpw_kernel")}
+    for k in ("dd_kernel", "dx_ddw_kernel", "dpw_kernel"):
+        check(counts[k] == UNITS_PER_STEP * n == traced_step_launches,
+              f"profile B: {counts[k]} {k} in the trace, {traced_step_launches} sepconv_bwd "
+              f"launches in the step, want {UNITS_PER_STEP}")
+    check(counts["sepconv_fwd_kernel"] == 0,
+          f"profile B: {counts['sepconv_fwd_kernel']} forward kernels in the Backward trace")
+    fused = [r for r in ops if r["category"] == "sepconv (hand-written)"]
+    unscoped = sorted({r["name"][:60] for r in fused if not r["scope"]})
+    check(fused and not unscoped, f"profile B: sepconv kernels without a scope: {unscoped}")
+    busy = sum(ops.column("time_ms")) / n
+    region = ops.attrs["region_ms"] / n
+    check(0 < busy <= region, f"profile B: device {busy} ms in a {region} ms region")
+    peak = GPU_PEAKS["h100-sxm"]["bf16_tflops"]
+    achieved = runs["B"]["tflops_per_sec"]["Backward"]
+    check(0 < achieved < peak, f"profile B: Backward at {achieved} TFLOP/s, peak {peak}")
+    check(op_profile.main([logdir, "--top", "15"]) == 0, "op_profile failed on the trace")
+    fams = per_step(category_table(ops), n)
+    scopes = per_step(scope_table(ops), n)
+    top = per_step(op_table(ops), n)
+    emit({"phase": "profile", "run": "B", "trace": os.path.basename(find_trace(logdir)),
+          "backward_kernel_counts": counts,
+          "device_busy_ms_per_step": busy, "region_ms_per_step": region,
+          "unattributed_share": unattributed_share(ops),
+          "families": [[r["category"], r["time_ms"], r["invocations"]] for r in fams],
+          "scopes_top": [[r["module"], r["time_ms"], r["invocations"]] for r in scopes[:15]],
+          "ops_top": [[r["name"][:90], r["category"], r["time_ms"], r["invocations"]]
+                      for r in top[:15]],
+          "means_ms": {tag: runs[tag]["mean_ms"] for tag in runs},
+          "profiler_cost_ms": {k: runs["B"]["mean_ms"][k] - runs["A"]["mean_ms"][k]
+                               for k in runs["A"]["mean_ms"]},
+          "phase_seconds": time.perf_counter() - t_phase,
+          "device": torch.cuda.get_device_name(0), "nvidia_smi": smi})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one card",
@@ -1766,6 +1902,12 @@ def main():
     emit({"phase": "step_profile", "batch": batch,
           **step_profile(fs, step_fn, create_train_state(model, opt), x, y)})
     del model, opt, x, y
+    torch.cuda.empty_cache()
+
+    # 12. the profiling entry point at full width, last: it runs the
+    # profiler too
+    with tempfile.TemporaryDirectory(prefix="deepcam_profile_") as out_dir:
+        profile_phase(fs, smi, out_dir)
 
     # launches per step by form, over all the form's shapes, as measured
     # in the slice (default configuration) and eval phases

@@ -84,18 +84,39 @@ def save_checkpoint(path: str, state: TrainState, epoch: int) -> None:
         _write(path, snapshot(state, epoch))
 
 
+def _reference_model_keys(model_sd: dict) -> dict:
+    """The model entries of a checkpoint under the reference's names without
+    DDP's ``module.`` prefix, which a checkpoint may or may not carry, and
+    without the ``num_batches_tracked`` counter of each ``nn.BatchNorm2d``,
+    which the reference writes and the port's BN has no use for (as the JAX
+    package's importer reads them)."""
+    return {(k[len(PREFIX):] if k.startswith(PREFIX) else k): v
+            for k, v in model_sd.items() if not k.endswith("num_batches_tracked")}
+
+
+def _restored_count(states: dict) -> torch.Tensor:
+    """The optimizer's update count: the largest ``step`` over the saved
+    per-parameter states, a missing one read as 0 (as the JAX package's
+    importer reads it)."""
+    steps = [float(st["step"]) for st in states.values() if "step" in st]
+    return torch.tensor(max(steps, default=0.0), dtype=torch.float32)
+
+
 def restore_checkpoint(path: str, state: TrainState) -> Tuple[TrainState, int]:
     """Loads a checkpoint into ``state`` (its model and optimizer, in place,
-    on their device) and returns ``(state, epoch)``."""
+    on their device) and returns ``(state, epoch)``.  Takes the port's files
+    and the reference's: model keys with or without ``module.``, BN
+    ``num_batches_tracked`` counters (dropped), and per-parameter optimizer
+    states without ``step``; every restored state carries the count of
+    ``_restored_count``."""
     blob = torch.load(path, map_location="cpu", weights_only=True)
     names = reference_names(state.model)
-    model_sd = blob["model"]
-    want = [PREFIX + ref for _, ref in names]
+    model_sd = _reference_model_keys(blob["model"])
+    want = [ref for _, ref in names]
     if sorted(model_sd) != sorted(want):
         diff = sorted(set(model_sd) ^ set(want))[:10]
         raise KeyError(f"{path}: model keys differ from the reference schema: {diff}")
-    state.model.load_state_dict({port: model_sd[PREFIX + ref] for port, ref in names},
-                                strict=True)
+    state.model.load_state_dict({port: model_sd[ref] for port, ref in names}, strict=True)
 
     opt = state.optimizer
     saved = blob["optimizer"]
@@ -106,11 +127,12 @@ def restore_checkpoint(path: str, state: TrainState) -> Tuple[TrainState, int]:
     order = [p for g in opt.param_groups for p in g["params"]]
     if len(opt.param_groups) != 1 or len(order) != len(ref_index):
         raise ValueError("the optimizer must hold the model's parameters in one group")
+    count = _restored_count(saved["state"])
     opt_state = {}
     for j, p in enumerate(order):
         i = ref_index[port_to_ref[name_of[id(p)]]]
         if i in saved["state"]:
-            opt_state[j] = saved["state"][i]
+            opt_state[j] = {**saved["state"][i], "step": count.clone()}
     group = dict(saved["param_groups"][0])
     group["params"] = list(range(len(order)))
     opt.load_state_dict({"state": opt_state, "param_groups": [group]})

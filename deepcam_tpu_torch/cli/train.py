@@ -22,18 +22,25 @@ example ``MemoryCamDataset``).
 Not ported, because they are TPU layout devices or TPU-only settings: the
 space-to-depth host feed, spatial partitioning (``--spatial`` > 1,
 ``--spatial_impl gspmd``), rematerialization (``--remat``), the orbax
-checkpoint format and ``--wireup_method jax``.  The visualizer and the
-wandb shim belong to a later slice.  Each of these flags raises.
+checkpoint format and ``--wireup_method jax``.  Each of these flags raises.
+
+With nonzero visualization frequencies rank 0 plots one sample's eval-mode
+prediction against its label into ``<output_dir>/plots`` (``obs/visualizer.py``,
+which needs matplotlib), and ``--enable_wandb`` logs the scalars, the
+plots and parameter and gradient histograms through ``obs/wandb_utils.py``,
+inert where wandb is not installed.
 """
 
 from __future__ import annotations
 
 import argparse as ap
+import functools
 import os
 import time
 from dataclasses import dataclass, field
 from typing import Dict
 
+import numpy as np
 import torch
 
 
@@ -69,9 +76,9 @@ def build_parser() -> ap.ArgumentParser:
     AP.add_argument("--max_validation_steps", type=int, default=None)
     AP.add_argument("--logging_frequency", type=int, default=100)
     AP.add_argument("--training_visualization_frequency", type=int, default=0,
-                    help="not ported yet: a nonzero value raises")
+                    help="plot a training sample every N steps (0: never)")
     AP.add_argument("--validation_visualization_frequency", type=int, default=0,
-                    help="not ported yet: a nonzero value raises")
+                    help="plot a validation sample in each validation (0: never)")
     AP.add_argument("--local_batch_size", type=int, default=1,
                     help="Samples per device per step")
     AP.add_argument("--channels", type=int, nargs="+", default=list(range(16)))
@@ -89,9 +96,9 @@ def build_parser() -> ap.ArgumentParser:
     AP.add_argument("--amp_opt_level", type=str, default="O1",
                     help="O0 = fp32 compute; O1/O2 = bf16 compute with fp32 parameters")
     AP.add_argument("--enable_wandb", action="store_true",
-                    help="not ported yet: raises")
+                    help="log to Weights & Biases from rank 0 (inert without wandb)")
     AP.add_argument("--wandb_certdir", type=str, default=None,
-                    help="wandb certificates directory (wandb is not ported yet)")
+                    help="directory holding the .wandbirc credentials")
     AP.add_argument("--resume_logging", action="store_true")
     AP.add_argument("--seed", type=int, default=333)
     AP.add_argument("--remat", action="store_true",
@@ -125,10 +132,6 @@ def check_supported(pargs) -> None:
         "--remat (a TPU memory device)": pargs.remat,
         "--checkpoint_format orbax (a TPU format)": pargs.checkpoint_format == "orbax",
         "--wireup_method jax (the TPU wireup)": pargs.wireup_method == "jax",
-        "--enable_wandb (not ported yet)": pargs.enable_wandb,
-        "nonzero visualization frequencies (not ported yet)":
-            pargs.training_visualization_frequency > 0
-            or pargs.validation_visualization_frequency > 0,
     }
     bad = [k for k, v in refused.items() if v]
     if bad:
@@ -193,7 +196,7 @@ def main(pargs) -> dict:
             destroy_distributed()
 
 
-def validate(state, eval_step, loader, device, budget=None):
+def validate(state, eval_step, loader, device, budget=None, on_first_batch=None):
     """One validation over this rank's shard, ``loader.dataset``, in eval
     calls of ``loader.batch_size``: ``(count, loss_sum, iou_sum)`` summed over
     the process group's ranks in float64, the same on every rank.
@@ -203,7 +206,10 @@ def validate(state, eval_step, loader, device, budget=None):
     of an uneven split) pads with ``valid=0`` batches, and a trailing partial
     batch is padded the same way, so each sample counts once.  Batches go to
     the card while the previous eval step runs, and the partials stay there
-    until one sum over calls and ranks and one fetch at the end."""
+    until one sum over calls and ranks and one fetch at the end.
+    ``on_first_batch(data, label, names)`` is called once, after the eval
+    step of the first batch that holds a real sample (the CLI's validation
+    plot)."""
     from ..data.pipeline import prefetch_to_device
     from ..parallel.collectives import allreduce_sum_
 
@@ -224,9 +230,9 @@ def validate(state, eval_step, loader, device, budget=None):
                 if batch is None:  # a shard with fewer batches: pad-only
                     yield (torch.zeros((eval_batch,) + ds.data_shape, dtype=dtype),
                            torch.zeros((eval_batch,) + ds.label_shape, dtype=torch.int32),
-                           torch.zeros((eval_batch,), dtype=torch.float32))
+                           torch.zeros((eval_batch,), dtype=torch.float32), ())
                     continue
-                data, label, _ = batch
+                data, label, names = batch
                 n = data.shape[0]
                 valid = torch.ones((n,), dtype=torch.float32)
                 if budget is not None and seen_local + n > budget:
@@ -239,12 +245,16 @@ def validate(state, eval_step, loader, device, budget=None):
                 seen_local += n
                 if budget is not None:
                     seen_local = min(seen_local, budget)
-                yield data, label, valid
+                yield data, label, valid, names
         finally:
             it.close()  # a budget can stop before the loader's end
 
-    partials = [torch.stack(eval_step(state, d, lb, v))
-                for d, lb, v in prefetch_to_device(host_batches(), device)]
+    partials = []
+    for d, lb, v, names in prefetch_to_device(host_batches(), device):
+        partials.append(torch.stack(eval_step(state, d, lb, v)))
+        if on_first_batch is not None and names:
+            on_first_batch(d, lb, names)
+            on_first_batch = None
     return tuple(allreduce_sum_(torch.stack(partials).double().sum(0)).tolist())
 
 
@@ -257,6 +267,8 @@ def train_loop(pargs, train_set, validation_set) -> LoopResult:
     from ..data.pipeline import DataLoader, prefetch_to_device
     from ..models.deeplab import DeepLabv3plus
     from ..obs.mlperf_log import MLPerfLogger
+    from ..obs.wandb_utils import WandbLogger
+    from ..ops.classify import argmax_channels
     from ..train.losses import FPW_1, FPW_2, class_weights
     from ..train.optim import build_optimizer
     from ..train.schedule import get_lr_schedule
@@ -279,8 +291,27 @@ def train_loop(pargs, train_set, validation_set) -> LoopResult:
         seed = pargs.seed
         logger.log_event(key="seed", value=seed)
         torch.manual_seed(seed)
+        visualize = (pargs.training_visualization_frequency > 0
+                     or pargs.validation_visualization_frequency > 0)
+        plot_dir = os.path.join(pargs.output_dir, "plots")
         if rank == 0:
             os.makedirs(pargs.output_dir, exist_ok=True)
+            if visualize:
+                os.makedirs(plot_dir, exist_ok=True)
+        wb = WandbLogger(
+            enable=pargs.enable_wandb, rank=rank, certdir=pargs.wandb_certdir,
+            run_tag=pargs.run_tag, resume_logging=pargs.resume_logging,
+            config={"root_dir": pargs.data_dir_prefix, "output_dir": pargs.output_dir,
+                    "max_epochs": pargs.max_epochs,
+                    "local_batch_size": pargs.local_batch_size, "num_workers": n_replicas,
+                    "channels": pargs.channels, "optimizer": pargs.optimizer,
+                    "start_lr": pargs.start_lr, "adam_eps": pargs.adam_eps,
+                    "weight_decay": pargs.weight_decay, "model_prefix": pargs.model_prefix,
+                    "amp_opt_level": pargs.amp_opt_level,
+                    "loss_weight_pow": pargs.loss_weight_pow,
+                    "lr_warmup_steps": pargs.lr_warmup_steps,
+                    "lr_warmup_factor": pargs.lr_warmup_factor,
+                    **{f"lr_schedule_{k}": v for k, v in (pargs.lr_schedule or {}).items()}})
 
         global_batch_size = pargs.local_batch_size * n_replicas
         logger.log_event(key="global_batch_size", value=global_batch_size)
@@ -329,6 +360,29 @@ def train_loop(pargs, train_set, validation_set) -> LoopResult:
         train_step = make_train_step(weights, fpw_1=FPW_1, fpw_2=FPW_2, with_iou=True)
         eval_step = make_eval_step(weights, fpw_1=FPW_1, fpw_2=FPW_2)
         ckpt_writer = AsyncCheckpointWriter() if pargs.async_checkpoint else None
+        # the wandb.watch analogue: histograms at 10x the scalars' cadence
+        watch_every = 10 * pargs.logging_frequency
+        viz = None
+        if visualize and rank == 0:
+            from ..obs.visualizer import CamVisualizer
+
+            viz = CamVisualizer()
+
+        def visualize_sample(data, label, names, step, prefix):
+            """One random real sample of the batch, predicted in eval mode at
+            batch 1, plotted against its label; the plot goes to wandb as
+            ``<prefix>_examples``.  The next train step sets train mode
+            again."""
+            idx = int(np.random.randint(0, len(names)))
+            state.model.eval()
+            with torch.no_grad():
+                pred = argmax_channels(state.model(data[idx:idx + 1]))
+            outputfile = os.path.join(plot_dir, os.path.basename(names[idx]).replace(
+                "data-", prefix + "-").replace(".h5", ".png"))
+            viz.plot(names[idx], outputfile, data[idx, :, :, 0].float().cpu().numpy(),
+                     pred[0].cpu().numpy(), label[idx].cpu().numpy())
+            wb.log_image(f"{prefix}_examples", outputfile, "Prediction vs. Ground Truth",
+                         step)
 
         step = state.step
         epoch = state.epoch
@@ -351,14 +405,18 @@ def train_loop(pargs, train_set, validation_set) -> LoopResult:
             budget = None
             if pargs.max_validation_steps is not None:
                 budget = pargs.max_validation_steps + 1
+            plot = None
+            if viz is not None and pargs.validation_visualization_frequency > 0:
+                plot = functools.partial(visualize_sample, step=step, prefix="validation")
             count, loss_sum, iou_sum = validate(state, eval_step, validation_loader, device,
-                                                budget)
+                                                budget, plot)
             loss_avg_val = loss_sum / max(count, 1.0)
             iou_avg_val = iou_sum / max(count, 1.0)
             logger.log_event(key="eval_accuracy", value=iou_avg_val,
                              metadata={"epoch_num": epoch + 1, "step_num": step})
             logger.log_event(key="eval_loss", value=loss_avg_val,
                              metadata={"epoch_num": epoch + 1, "step_num": step})
+            wb.log({"eval_loss": loss_avg_val, "eval_accuracy": iou_avg_val}, step)
             if iou_avg_val >= pargs.target_iou:
                 logger.log_event(key="target_accuracy_reached", value=pargs.target_iou,
                                  metadata={"epoch_num": epoch + 1, "step_num": step})
@@ -383,13 +441,16 @@ def train_loop(pargs, train_set, validation_set) -> LoopResult:
                 if item is None:
                     break
                 timings["wait_ms"].append((t1 - t0) * 1e3)
-                data, label, _ = item
+                data, label, names = item
                 state, metrics = train_step(state, data, label)
                 step += 1
                 timings["steps"] += 1
                 # lr used by the update just taken: the optimizer's count
                 # was step-1 inside it
                 current_lr = float(lr_sched(step - 1))
+                if (viz is not None and pargs.training_visualization_frequency > 0
+                        and step % pargs.training_visualization_frequency == 0):
+                    visualize_sample(data, label, names, step, "training")
 
                 if step % pargs.logging_frequency == 0:
                     loss_avg = float(metrics["loss"])
@@ -398,6 +459,10 @@ def train_loop(pargs, train_set, validation_set) -> LoopResult:
                     logger.log_event(key="learning_rate", value=current_lr, metadata=md)
                     logger.log_event(key="train_accuracy", value=iou_avg, metadata=md)
                     logger.log_event(key="train_loss", value=loss_avg, metadata=md)
+                    wb.log({"train_loss": loss_avg, "train_accuracy": iou_avg,
+                            "learning_rate": current_lr}, step)
+                    if step % watch_every == 0:  # gradients as the step left them
+                        wb.watch(state.model, step)
                 timings["step_ms"].append((time.perf_counter() - t1) * 1e3)
 
                 if step % pargs.validation_frequency == 0:

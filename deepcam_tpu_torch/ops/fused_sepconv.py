@@ -66,6 +66,13 @@ FORMS = ("base", "affine", "stats", "affine_stats", "boundary", "boundary_stats"
 FORM_LAUNCHES = {k: dict.fromkeys(FORMS, 0) for k in LAUNCHES}
 
 
+# Work counters (``profiling/profiler.py:cost_analysis``) while a count
+# runs: each unit calls the last one's ``enter()`` before its kernel (or
+# plain version) and ``exit(token, form, p, c, f, backward)`` after it.
+# Empty otherwise, so a launch pays one list test.
+UNIT_COUNTERS: list = []
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
@@ -477,6 +484,11 @@ def _device_kind(x):
     return kind
 
 
+def _unit_dims(x, pwk):
+    """(P, C, F) of a unit: pixels, input and output channels."""
+    return x.numel() // x.shape[-1], x.shape[-1], pwk.shape[-1]
+
+
 class _FusedSepconv(torch.autograd.Function):
     """Every form: outputs (y[, r][, Σy, Σy²]); the backward receives their
     cotangents (None where an output is unused) and returns (dx, da, db,
@@ -487,10 +499,15 @@ class _FusedSepconv(torch.autograd.Function):
         ctx.set_materialize_grads(False)
         emit_d = any(ctx.needs_input_grad[:6])
         kw = dict(a=a, b=b, skip=skip, emit_stats=emit_stats)
+        counter = UNIT_COUNTERS[-1] if UNIT_COUNTERS else None
+        token = counter.enter() if counter is not None else None
         if _device_kind(x) == "cuda":
             out = sepconv_fwd(x, dwk, pwk, pre_relu, dilation, emit_d, **kw)
         else:
             out = sepconv_fwd_plain(x, dwk, pwk, pre_relu, dilation, **kw)
+        if counter is not None:
+            form = form_name(a is not None, skip is not None, emit_stats)
+            counter.exit(token, form, *_unit_dims(x, pwk), False)
         ctx.pre_relu, ctx.dilation, ctx.emit_stats = pre_relu, dilation, emit_stats
         if emit_d:
             ctx.save_for_backward(x, a, b, skip, dwk, pwk, out.d,
@@ -517,10 +534,15 @@ class _FusedSepconv(torch.autograd.Function):
             gs1, gs2 = ((x.new_zeros(pwk.shape[-1], dtype=torch.float32) if t is None
                          else t.float().contiguous()) for t in (gs1, gs2))
         kw = dict(a=a, b=b, skip=skip, gr=gr, y=y, gs1=gs1, gs2=gs2)
+        counter = UNIT_COUNTERS[-1] if UNIT_COUNTERS else None
+        token = counter.enter() if counter is not None else None
         if _device_kind(x) == "cuda":
             out = sepconv_bwd(x, gy, dwk, pwk, d, ctx.pre_relu, ctx.dilation, **kw)
         else:
             out = sepconv_bwd_plain(x, gy, dwk, pwk, d, ctx.pre_relu, ctx.dilation, **kw)
+        if counter is not None:
+            form = form_name(a is not None, skip is not None, ctx.emit_stats)
+            counter.exit(token, form, *_unit_dims(x, pwk), True)
         # da and db rounded to a's type, as the JAX VJP rounds them
         da = out.da.to(a.dtype) if a is not None else None
         db = out.db.to(b.dtype) if b is not None else None

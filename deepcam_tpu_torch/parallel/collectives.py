@@ -46,6 +46,17 @@ def broadcast_from_host0(value: Any) -> Any:
     return box[0]
 
 
+def allgather_object(value: Any) -> list:
+    """Every rank's ``value`` (any picklable object), in rank order, on
+    every rank; ``[value]`` without a group."""
+    dist = initialized_dist()
+    if dist is None:
+        return [value]
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, value)
+    return out
+
+
 def allreduce_sum_scalar(x: float) -> float:
     """A host scalar summed over all processes, in float64 (parity: the
     eval accumulators' all-reduce, train_hdf5_ddp.py:490-492)."""

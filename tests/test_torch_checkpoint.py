@@ -149,6 +149,71 @@ def test_only_rank_0_writes(tmp_path, monkeypatch):
     assert writer._thread is None and os.listdir(tmp_path) == []
 
 
+def _rewrite(path, out, edit):
+    """``path``'s checkpoint with ``edit(blob)`` applied, saved as ``out``."""
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    edit(blob)
+    torch.save(blob, out)
+    return out
+
+
+@pytest.mark.parametrize("prefix", ["module.", ""])
+def test_restores_a_reference_style_checkpoint(trained, tmp_path, prefix):
+    """The reference's ``nn.BatchNorm2d`` also saves ``num_batches_tracked``
+    (one per BN, 77 in the model), and a file may lack DDP's ``module.``
+    prefix: such a file restores to exactly the tensors of the untouched
+    one."""
+    state, path = trained
+
+    def edit(blob):
+        model = {}
+        for k, v in blob["model"].items():
+            model[prefix + k[len("module."):]] = v
+            if k.endswith("running_var"):
+                tracked = prefix + k[len("module."):-len("running_var")] + "num_batches_tracked"
+                model[tracked] = torch.tensor(2, dtype=torch.long)
+        assert sum(k.endswith("num_batches_tracked") for k in model) == 77
+        blob["model"] = model
+
+    ref = _rewrite(path, str(tmp_path / "ref.cpt"), edit)
+    fresh, epoch = restore_checkpoint(ref, _state(seed=6))
+    assert epoch == 3
+    _assert_same(fresh, state)
+
+
+def test_optimizer_states_without_step_restore_count_0(trained, tmp_path):
+    """A per-parameter state without ``step`` reads as 0, and the restored
+    count is the largest over the parameters, on every parameter: with no
+    step saved the next LAMB update is the first."""
+    _, path = trained
+
+    def drop(keep):
+        def edit(blob):
+            for i, st in blob["optimizer"]["state"].items():
+                if i not in keep:
+                    del st["step"]
+        return edit
+
+    fresh, _ = restore_checkpoint(_rewrite(path, str(tmp_path / "a.cpt"), drop(())),
+                                  _state(seed=6))
+    states = [fresh.optimizer.state[p] for p in fresh.model.parameters()]
+    assert all(float(st["step"]) == 0.0 for st in states)
+    fresh, _ = restore_checkpoint(_rewrite(path, str(tmp_path / "b.cpt"), drop({3})),
+                                  _state(seed=6))
+    assert all(float(fresh.optimizer.state[p]["step"]) == 2.0
+               for p in fresh.model.parameters())
+
+
+def test_a_missing_weight_still_raises(trained, tmp_path):
+    _, path = trained
+
+    def edit(blob):
+        del blob["model"]["module.xception_features.block4.rep.1.conv1.weight"]
+
+    with pytest.raises(KeyError, match="block4.rep.1.conv1.weight"):
+        restore_checkpoint(_rewrite(path, str(tmp_path / "m.cpt"), edit), _state(seed=6))
+
+
 def test_name_map_raises_on_an_unassigned_tensor():
     model = DeepLabv3plus(3, dtype=torch.float32, device="cpu", seed=1)
     model.xception.block4.register_buffer("extra", torch.zeros(1))

@@ -13,12 +13,14 @@ import numpy as np
 import pytest
 import torch
 
-from deepcam_tpu_torch.cli.train import (build_parser, compute_dtype, main, make_datasets,
-                                         train_loop)
+from deepcam_tpu_torch.cli.train import (build_parser, check_supported, compute_dtype, main,
+                                         make_datasets, train_loop)
 from deepcam_tpu_torch.data.pipeline import DataLoader
 from deepcam_tpu_torch.data.synthetic import make_synthetic_dataset
 from deepcam_tpu_torch.obs.mlperf_log import parse_mllog
 from deepcam_tpu_torch.train.schedule import get_lr_schedule
+from deepcam_tpu_torch.obs import wandb_utils
+from tests.torch_port_ref import install_fake_wandb
 from tests.torch_port_ref import few_torch_threads, release_memory  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("few_torch_threads")
@@ -92,12 +94,19 @@ def test_loss_weight_pow_matches_jax(pow_):
 
 @pytest.mark.parametrize("extra", [
     ["--spatial", "2"], ["--spatial_impl", "gspmd"], ["--remat"],
-    ["--checkpoint_format", "orbax"], ["--wireup_method", "jax"], ["--enable_wandb"],
-    ["--training_visualization_frequency", "1"],
-    ["--validation_visualization_frequency", "1"]])
+    ["--checkpoint_format", "orbax"], ["--wireup_method", "jax"]])
 def test_refused_flags_raise(tmp_path, extra):
     with pytest.raises(NotImplementedError, match="does not take"):
         main(_args(str(tmp_path / "none"), str(tmp_path / "o"), "r", *extra))
+
+
+@pytest.mark.parametrize("extra", [
+    ["--enable_wandb"], ["--training_visualization_frequency", "1"],
+    ["--validation_visualization_frequency", "1"]])
+def test_wandb_and_visualization_flags_are_taken(extra):
+    """The flags of the visualizer and the wandb shim pass the check of
+    what the port takes (the run itself: ``test_run_checkpoints_and_resume``)."""
+    check_supported(build_parser().parse_args(extra))
 
 
 def test_cuda_without_a_card_raises(tmp_path):
@@ -124,14 +133,33 @@ def small_root(tmp_path):
                                   shape=(32, 48), seed=1)
 
 
-def test_run_checkpoints_and_resume(small_root, tmp_path):
+def test_run_checkpoints_and_resume(small_root, tmp_path, monkeypatch):
     """Two epochs of 2 steps with validation every 2 steps and a save at
     step 4, then a resume from it: it runs epoch 2 again, with the
     validation budget of --max_validation_steps 0 (one sample) and an async
-    save every 2 steps."""
+    save every 2 steps.  The first run also plots a training sample every 2
+    steps and a validation sample in each validation, and logs to a fake
+    wandb: the JAX CLI's plots and keys."""
     out = str(tmp_path / "out")
+    wb = install_fake_wandb(monkeypatch, wandb_utils, certdir=tmp_path / "cert")
     res = main(_args(small_root, out, "run", "--max_epochs", "2",
-                     "--validation_frequency", "2", "--save_frequency", "4"))
+                     "--validation_frequency", "2", "--save_frequency", "4",
+                     "--training_visualization_frequency", "2",
+                     "--validation_visualization_frequency", "1", "--enable_wandb",
+                     "--wandb_certdir", str(tmp_path / "cert")))
+    plots = sorted(os.listdir(os.path.join(out, "plots")))
+    assert [p.split("-")[0] for p in plots].count("training") >= 1, plots
+    assert [p.split("-")[0] for p in plots].count("validation") >= 1, plots
+    assert all(p.endswith(".png") for p in plots)
+    logged = wb.logged()
+    for key in ("train_loss", "train_accuracy", "learning_rate"):
+        assert logged[key] == [1, 2, 3, 4], key
+    for key in ("eval_loss", "eval_accuracy", "validation_examples"):
+        assert logged[key] == [2, 4], key
+    assert logged["training_examples"] == [2, 4]
+    init = next(c[1] for c in wb.calls if c[0] == "init")
+    assert (init["entity"], init["name"], init["id"]) == ("deepcam-user", "run", "run")
+    assert wb.config.optimizer == "LAMB" and wb.config.lr_schedule_milestones == "1 3"
     assert (res["step"], res["epoch"], res["eval_samples_seen"]) == (4, 2, 3.0)
     assert 0.0 <= res["eval_iou"] <= 1.0
     recs = parse_mllog(os.path.join(out, "logs", "run.log"))

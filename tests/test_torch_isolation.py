@@ -14,8 +14,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "deepcam_tpu_torch"
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "optax", "deepcam_tpu")
-# the data-parallel modules: the process-group wireup and the collectives
-DIST_MODULES = ("deepcam_tpu_torch.core.mesh", "deepcam_tpu_torch.parallel.collectives")
+# the data-parallel modules: the process-group wireup and the collectives;
+# the profiling entry point and its tables, the observability modules and
+# the offline data tools
+NAMED_MODULES = ("deepcam_tpu_torch.core.mesh", "deepcam_tpu_torch.parallel.collectives",
+                "deepcam_tpu_torch.cli.profile", "deepcam_tpu_torch.profiling.profiler",
+                "deepcam_tpu_torch.profiling.op_table", "deepcam_tpu_torch.profiling.op_profile",
+                "deepcam_tpu_torch.profiling.roofline_plot", "deepcam_tpu_torch.obs.visualizer",
+                "deepcam_tpu_torch.obs.wandb_utils", "deepcam_tpu_torch.obs.analysis",
+                "deepcam_tpu_torch.tools.split_data", "deepcam_tpu_torch.tools.summarize_data")
 
 PROBE = """
 import importlib, pkgutil, sys
@@ -38,7 +45,7 @@ def test_importing_the_port_loads_no_jax():
     assert out.returncode == 0, out.stderr
     lines = dict(line.split(" ", 1) for line in out.stdout.strip().splitlines())
     assert int(lines["MODULES"]) >= 15
-    for name in DIST_MODULES:
+    for name in NAMED_MODULES:
         assert repr(name) in lines["LOADED"], name
     assert lines["BAD"] == "[]", lines["BAD"]
 
@@ -47,7 +54,7 @@ def test_port_sources_name_no_jax():
     imp = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|deepcam_tpu)\b", re.M)
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) >= 15
-    for name in DIST_MODULES:
+    for name in NAMED_MODULES:
         assert ROOT / (name.replace(".", "/") + ".py") in files, name
     for f in files:
         text = f.read_text()

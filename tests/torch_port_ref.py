@@ -150,3 +150,57 @@ def assert_trees_close(got, want, rel, label):
             worst = (k, err)
     assert worst[1] <= rel, f"{label}: worst leaf {worst[0]} rel err {worst[1]:.3e}"
     return worst
+
+
+class FakeWandb:
+    """A stand-in for the ``wandb`` module that records what the shims call:
+    ``calls`` holds ("init", kwargs), ("log", payload, step) and
+    ("login", argv)."""
+
+    class Image:
+        def __init__(self, path, caption=None):
+            self.path, self.caption = path, caption
+
+    class Histogram:
+        def __init__(self, values):
+            self.values = np.asarray(values)
+
+    def __init__(self):
+        import types
+
+        self.calls = []
+        self.config = types.SimpleNamespace()
+
+    def init(self, **kwargs):
+        self.calls.append(("init", kwargs))
+
+    def log(self, payload, step=None):
+        self.calls.append(("log", payload, step))
+
+    def logged(self):
+        """Every key logged, with the steps it was logged at."""
+        keys = {}
+        for call in self.calls:
+            if call[0] == "log":
+                for k in call[1]:
+                    keys.setdefault(k, []).append(call[2])
+        return keys
+
+
+def install_fake_wandb(monkeypatch, *shims, certdir=None):
+    """A ``FakeWandb`` in ``sys.modules`` and in each shim module (what
+    importing it would have bound), ``wandb login`` recorded instead of run,
+    and a ``.wandbirc`` in ``certdir`` if given."""
+    import sys
+
+    fake = FakeWandb()
+    monkeypatch.setitem(sys.modules, "wandb", fake)
+    for shim in shims:
+        monkeypatch.setattr(shim, "_wandb", fake)
+        monkeypatch.setattr(shim, "HAVE_WANDB", True)
+        monkeypatch.setattr(shim.subprocess, "call",
+                            lambda argv: fake.calls.append(("login", argv)) or 0)
+    if certdir is not None:
+        certdir.mkdir(parents=True, exist_ok=True)
+        (certdir / ".wandbirc").write_text("deepcam-user 0123456789abcdef\n")
+    return fake
