@@ -19,9 +19,13 @@ otherwise.  Phases, each printing JSON lines:
    same bf16 inputs, at the shapes where the main path runs it (batch 4):
    the base form at the entry, middle-flow and exit shapes, stats at the
    entry shape, affine_stats at the middle and exit shapes, boundary and
-   boundary_stats at the middle shape, affine at block20's sepconv_last.  y,
+   boundary_stats at the middle shape, affine at block20's sepconv_last;
+   and the os=8 model's new ones: affine_stats, boundary_stats and boundary
+   at 728→728 @ 96x144 dilation 2, affine at block3's stride-1 tail,
+   affine_stats at 1536→2048 @ 96x144 dilation 4.  y,
    dx and d_skip within 2e-2 of the largest reference value (bf16 outputs);
-   d_dw, d_pw, da and db within 1e-3 (fp32 sums in another order); each
+   d_dw, da and db within 1e-3 (fp32 sums in another order), d_pw within
+   1e-3 of the plain version's product summed in fp64; each
    channel's Σy and Σy² within 1e-5 of that channel's Σ|y| and Σy² against
    fp64 sums of the kernel's own y, and within 1e-3 against the plain
    version's; d and r bit-exact.  Median times of the kernel,
@@ -37,7 +41,8 @@ otherwise.  Phases, each printing JSON lines:
 4. units   — one full-resolution training step in which every one of the
    60 fused units holds all its kernel outputs to the plain version on the
    same inputs, with the tolerances of phase 3: every unit shape and form
-   of the train step, forward and backward.
+   of the train step, forward and backward; the units counted by form and
+   by dilation (57 at 1, 3 at 2).
 5. slice   — the full-width DeepLabv3+ (bf16, fp32 parameters) trained with
    AdamW on a synthetic (4, 768, 1152, 16) batch through ``make_train_step``,
    first in the default configuration (1 warm-up and 3 timed steps), then
@@ -49,7 +54,20 @@ otherwise.  Phases, each printing JSON lines:
 6. eval    — the full-width ``make_eval_step`` at batch 4 with one sample
    masked out (1 warm-up and 2 timed steps): 60 forward launches per step in
    the forms base 5 / affine 39 / boundary 16, and no backward launch.
-7. block   — middle-flow Xception blocks in train mode at (2, 48, 72, 728)
+7. os8     — ``DeepLabv3plus(output_stride=8, decoder="interpolation")`` at
+   full width from seed 333 (bf16, fp32 parameters).  A cadene-shaped
+   ImageNet Xception state_dict made from a seed is imported into the card
+   model (``tools/import_torch_checkpoint.py``): 169 tensors land, each
+   equal to its source, and every other tensor keeps its init.  Then, on a
+   synthetic (4, 768, 1152, 16) batch with AdamW: one train step with all
+   61 units held to the plain version as in phase 4 (forms stats 5 /
+   affine_stats 38 / boundary_stats 16 / affine 2; dilations 8 at 1, 50 at
+   2, 3 at 4); 1 warm-up and 3 timed steps (ms/step, samples/s, peak
+   memory) with 61 launches per kernel per step in those forms; the eval
+   step (1 warm-up and 2 timed, forms base 5 / affine 40 / boundary 16);
+   and the whole model in eval mode against the CPU as in phase 9.  Phase
+   3 times the kernels at this model's new shapes and dilations.
+8. block   — middle-flow Xception blocks in train mode at (2, 48, 72, 728)
    on the card (bf16, kernels) and on the CPU (bf16, plain versions), from
    the same weights and input.  One block, in the default configuration
    and in the first slice's, plus one AdamW step: output, dx, every
@@ -60,13 +78,13 @@ otherwise.  Phases, each printing JSON lines:
    own spread under a 1e-6 nudge of the BN scales.  Each norm limit on dx
    and the gradients must sit below how far bf16 alone moves them (the
    CPU's bf16 run against its fp32 run).
-8. parity  — the whole model in eval mode with random running statistics
+9. parity  — the whole model in eval mode with random running statistics
    at (2, 64, 96, 16), the same weights on the card (bf16, kernels) and on
    the CPU: against the CPU's bf16 run (plain versions) the logits, the
    weighted-CE loss and the gradient of every parameter (PARITY_TOL);
    against its fp32 run the logits and loss (FP32_TOL).  A coarse gate:
    through ~80 layers bf16 rounding alone moves the gradients by ~15%.
-9. cli     — the port's training CLI (``cli/train.py:train_loop``)
+10. cli    — the port's training CLI (``cli/train.py:train_loop``)
    at full width: LAMB under warmup + multistep, local batch 2, bf16, over
    8 train and 4 validation samples of (768, 1152, 16) made by
    ``data/synthetic.py`` and served from memory through the port's dataset,
@@ -82,7 +100,7 @@ otherwise.  Phases, each printing JSON lines:
    batch-2 step, the data wait, validation ms per sample, checkpoint save
    ms (sync and async) and peak memory.  Before the split phase, because
    of the profiler's lasting cost.
-10. ddp    — data parallelism over ``torch.distributed``, in child
+11. ddp    — data parallelism over ``torch.distributed``, in child
    processes of this script (``--ddp-child``), which load the kernels the
    build phase built.  (a) World 1 on NCCL through the CLI: one rank with
    torchrun's variables set, so that ``init_distributed("auto")`` wires up
@@ -105,13 +123,13 @@ otherwise.  Phases, each printing JSON lines:
    read the same IoU; rank 0 alone writes a checkpoint and log
    lines.  The gloo step time is printed labelled: gloo stages the
    tensors through the host.
-11. split  — at the affine_stats middle and exit shapes and the stats
+12. split  — at the affine_stats middle and exit shapes and the stats
    entry shape, each launch of both kernels timed on its own; and one
    default-configuration training step (batch 4, after a warm-up) with the
    card's time by kernel, read through ``profiling/op_table.py``.  Both
    with torch.profiler: once the profiler has run, launches stay traced and
    slower, so only the profile phase comes after.
-12. profile — the profiling entry point (``cli/profile.py:main``) at its
+13. profile — the profiling entry point (``cli/profile.py:main``) at its
    defaults, full width (768, 1152, 16), local batch 2, AdamW, bf16, 1
    warm-up and 4 profiled steps, with the counters zeroed just before and
    read just after: (A) without a trace, (B) with ``--profile Backward``.
@@ -163,6 +181,12 @@ KERNEL_CASES = [
     ("boundary_stats", "middle_728x728_48x72", 4, 48, 72, 728, 728, True, 1),
     ("boundary", "middle_728x728_48x72", 4, 48, 72, 728, 728, True, 1),
     ("affine", "last_1024x1024_48x72", 4, 48, 72, 1024, 1024, False, 1),
+    # the shapes and dilations only the output-stride-8 model runs (os8 phase)
+    ("affine_stats", "os8_middle_728x728_96x144_d2", 4, 96, 144, 728, 728, True, 2),
+    ("boundary_stats", "os8_middle_728x728_96x144_d2", 4, 96, 144, 728, 728, True, 2),
+    ("boundary", "os8_middle_728x728_96x144_d2", 4, 96, 144, 728, 728, True, 2),
+    ("affine", "os8_block3_last_728x728_96x144", 4, 96, 144, 728, 728, False, 1),
+    ("affine_stats", "os8_exit_1536x2048_96x144_d4", 4, 96, 144, 1536, 2048, True, 4),
 ]
 # 32 of the 60 units of a train step run this form at this shape
 HEADLINE = ("affine_stats", "middle_728x728_48x72")
@@ -175,10 +199,21 @@ STEP_BATCH = 4
 WARMUP_STEPS, TIMED_STEPS = 1, 3
 BASE_TIMED_STEPS = 2
 EVAL_STEPS = 2
-UNITS_PER_STEP = 60
+# fused units per train and eval step by form, and by dilation: the os=16
+# deconv model (every phase but os8) and the os=8 interpolation model, where
+# block3's stride-1 tail adds an affine unit (os8 phase)
 TRAIN_FORMS = {"stats": 5, "affine_stats": 38, "boundary_stats": 16, "affine": 1}
 EVAL_FORMS = {"base": 5, "affine": 39, "boundary": 16}
-BASE_FORMS = {"base": 60}
+UNIT_DILATIONS = {1: 57, 2: 3}
+OS8_TRAIN_FORMS = {"stats": 5, "affine_stats": 38, "boundary_stats": 16, "affine": 2}
+OS8_EVAL_FORMS = {"base": 5, "affine": 40, "boundary": 16}
+OS8_UNIT_DILATIONS = {1: 8, 2: 50, 4: 3}
+OS8 = {"output_stride": 8, "decoder": "interpolation"}
+UNITS_PER_STEP = sum(TRAIN_FORMS.values())
+BASE_FORMS = {"base": UNITS_PER_STEP}
+# the cadene ImageNet Xception tensors the pretrained import lands in the
+# port's backbone (as the JAX package's importer does; tests/test_torch_pretrained.py)
+PRETRAINED_LANDED = 169
 # cli phase: the pod script's settings (LAMB, lr 1e-3, wd 1e-2, local batch
 # 2), cut to a short run.  A 2-step warmup to 2x and milestones "3 6" put
 # the warmup and the first milestone (update 5) inside the 8 steps and the
@@ -215,6 +250,11 @@ LAMB_TOL = 1e-6
 # fp32 sums relative to the largest value
 UNIT_TOL = {"y": 2e-2, "dx": 2e-2, "dskip": 2e-2, "ddw": 1e-3, "dpw": 1e-3,
             "da": 1e-3, "db": 1e-3}
+# d_pw is held to the plain version's product summed in fp64 (the same bf16
+# operands): the plain version's fp32 matmul, one sequential sum over up to
+# 55296 pixels whose terms cancel, lies up to 8.9e-4 of its largest entry
+# from that sum at the os=8 exit on an H100, as far as the limit itself
+# (analysis/dpw_accuracy.py).  "dpw_plain_fp64" reports that distance.
 # Σy, Σy² of each channel: against fp64 sums of the kernel's own y, and
 # against the plain version's y, relative to the channel's Σ|y| and Σy²
 # (the plain y differs by GEMM rounding)
@@ -374,6 +414,15 @@ def norm_err(a, b):
     return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
 
 
+def dpw_fp64(d, g, y=None, gs1=None, gs2=None, **_):
+    """d_pw = Σ_p d[p, c]·g'[p, f] summed in fp64, where g' is g with the
+    statistics cotangent folded in and rounded as the plain version does."""
+    if y is not None:
+        g = (g.float() + (gs1 + 2.0 * y.float() * gs2)).to(g.dtype)
+    return torch.matmul(d.reshape(-1, d.shape[-1]).double().t(),
+                        g.reshape(-1, g.shape[-1]).double())
+
+
 def stats_errors(stats, y, ref_stats):
     """Errors of the kernel's (Σy, Σy²): against fp64 sums of its own y and
     against the plain version's, each channel's relative to that channel's
@@ -463,6 +512,9 @@ def kernel_phase(fs):
                        gs2=0.1 * torch.randn(f, generator=gen, device="cuda"))
         got = fs.sepconv_bwd(x, g, dwk, pwk, out.d, pre_relu, dil, **bkw)
         want = fs.sepconv_bwd_plain(x, g, dwk, pwk, ref.d, pre_relu, dil, **bkw)
+        exact = dpw_fp64(out.d, g, **bkw)
+        errs["dpw_plain_fp64"] = rel_err(want.dpw, exact)
+        want = want._replace(dpw=exact)
         torch.cuda.synchronize()
         for key, tol in UNIT_TOL.items():
             a = out.y if key == "y" else getattr(got, key)
@@ -646,13 +698,16 @@ def probe_phase(pw):
     return row
 
 
-def checked_unit_step(fs, step_fn, state, x, y):
+def checked_unit_step(fs, step_fn, state, x, y, forms_wanted, dilations_wanted):
     """One training step in which each fused unit's kernel outputs are held
-    to the plain version on the same inputs (the tolerances of phase 3).
-    Returns the worst relative error of each output over the step's units
-    and the units seen, by direction."""
+    to the plain version on the same inputs (the tolerances of phase 3),
+    and its units counted by form and by dilation against the wanted counts
+    (whose sum is the units of a step).  Returns the worst relative error
+    of each output over the step's units and the units seen, by
+    direction."""
     real_fwd, real_bwd = fs.sepconv_fwd, fs.sepconv_bwd
-    worst = dict.fromkeys(list(UNIT_TOL) + ["s1", "s2", "s1_plain", "s2_plain"], 0.0)
+    worst = dict.fromkeys(list(UNIT_TOL) + ["s1", "s2", "s1_plain", "s2_plain",
+                                            "dpw_plain_fp64"], 0.0)
     units = {"fwd": [], "bwd": []}
 
     def hold(outs, refs, unit):
@@ -683,6 +738,9 @@ def checked_unit_step(fs, step_fn, state, x, y):
     def bwd(x, g, dwk, pwk, d, pre_relu, dil, **kw):
         got = real_bwd(x, g, dwk, pwk, d, pre_relu, dil, **kw)
         want = fs.sepconv_bwd_plain(x, g, dwk, pwk, d, pre_relu, dil, **kw)
+        exact = dpw_fp64(d, g, **kw)
+        worst["dpw_plain_fp64"] = max(worst["dpw_plain_fp64"], rel_err(want.dpw, exact))
+        want = want._replace(dpw=exact)
         unit = (*x.shape, pwk.shape[1], pre_relu, dil)
         keys = ("dx", "ddw", "dpw", "da", "db", "dskip")
         hold(keys, [(getattr(got, k), getattr(want, k)) for k in keys], unit)
@@ -695,11 +753,17 @@ def checked_unit_step(fs, step_fn, state, x, y):
         torch.cuda.synchronize()
     finally:
         fs.sepconv_fwd, fs.sepconv_bwd = real_fwd, real_bwd
-    check(len(units["fwd"]) == len(units["bwd"]) == UNITS_PER_STEP,
-          f"{len(units['fwd'])} forward and {len(units['bwd'])} backward units in one step")
+    n_units = sum(forms_wanted.values())
+    check(len(units["fwd"]) == len(units["bwd"]) == n_units,
+          f"{len(units['fwd'])} forward and {len(units['bwd'])} backward units in one step, "
+          f"want {n_units}")
     forms = [u[0] for u in units["fwd"]]
-    check({k: forms.count(k) for k in set(forms)} == TRAIN_FORMS,
+    check({k: forms.count(k) for k in set(forms)} == forms_wanted,
           f"unit forms of one train step: {sorted(forms)}")
+    for way in ("fwd", "bwd"):
+        dils = [u[-1] for u in units[way]]
+        check({d: dils.count(d) for d in set(dils)} == dilations_wanted,
+              f"{way} unit dilations of one train step: {sorted(dils)}")
     return state, metrics, worst, units
 
 
@@ -729,6 +793,34 @@ def train_steps(fs, step_fn, state, x, y, timed):
               "loss_first": losses[0], "loss_last": losses[-1],
               "iou_last": float(metrics["iou"]), "launches": launches, "forms": forms}
     return state, result
+
+
+def eval_steps(fs, state, x, y, where, forms_wanted):
+    """``make_eval_step`` on batch 4 with its last sample masked out: 1
+    warm-up and EVAL_STEPS timed calls, the counters zeroed just before and
+    read just after (``forms_wanted`` forward launches per call, none
+    backward), and a finite loss and an IoU in range over 3 samples."""
+    from deepcam_tpu_torch.train.losses import FPW_1, FPW_2, class_weights
+    from deepcam_tpu_torch.train.trainer import make_eval_step
+
+    eval_fn = make_eval_step(list(class_weights()), fpw_1=FPW_1, fpw_2=FPW_2)
+    valid = torch.tensor([1, 1, 1, 0], device="cuda")
+    eval_fn(state, x, y, valid)
+    torch.cuda.synchronize()
+    fs.reset_launches()
+    t1 = time.perf_counter()
+    for _ in range(EVAL_STEPS):
+        count, loss_sum, iou_sum = eval_fn(state, x, y, valid)
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t1) / EVAL_STEPS * 1e3
+    launches, forms = dict(fs.LAUNCHES), measured_forms(fs)
+    check_counts(where, launches, forms, EVAL_STEPS, forms_wanted, {})
+    count, loss_sum, iou_sum = float(count), float(loss_sum), float(iou_sum)
+    check(count == 3.0 and math.isfinite(loss_sum) and loss_sum > 0
+          and 0.0 <= iou_sum <= 3.0, f"{where} step: {count}, {loss_sum}, {iou_sum}")
+    return {"valid": valid.tolist(), "steps": EVAL_STEPS, "ms_per_step": eval_ms,
+            "count": count, "loss_mean": loss_sum / count, "iou_mean": iou_sum / count,
+            "launches": launches, "forms": forms}
 
 
 def measured_forms(fs):
@@ -870,16 +962,16 @@ def random_running_stats(model, seed):
             buf.copy_(0.5 * u + (0.75 if name.endswith("running_var") else -0.25))
 
 
-def model_parity(DeepLabv3plus, weighted_ce_loss, class_weights):
-    """The whole model in eval mode at (2, 64, 96, 16) on the card (bf16)
-    and on the CPU (bf16 and fp32): logits, loss and every parameter's
-    gradient of the loss."""
+def model_parity(DeepLabv3plus, weighted_ce_loss, class_weights, **model_kw):
+    """The whole model (``model_kw`` to its constructor) in eval mode at
+    (2, 64, 96, 16) on the card (bf16) and on the CPU (bf16 and fp32):
+    logits, loss and every parameter's gradient of the loss."""
     xs = torch.rand(2, 64, 96, 16, generator=torch.Generator().manual_seed(5))
     ys = torch.randint(0, 3, (2, 64, 96), generator=torch.Generator().manual_seed(6))
     runs = {}
     for key, dev, dtype in (("card", "cuda", torch.bfloat16), ("cpu16", "cpu", torch.bfloat16),
                             ("cpu32", "cpu", torch.float32)):
-        m = DeepLabv3plus(n_classes=3, dtype=dtype, device=dev, seed=7).eval()
+        m = DeepLabv3plus(n_classes=3, dtype=dtype, device=dev, seed=7, **model_kw).eval()
         random_running_stats(m, 8)
         logits = m(xs.to(dev))
         loss = weighted_ce_loss(logits, ys.to(dev), class_weights())
@@ -901,6 +993,99 @@ def model_parity(DeepLabv3plus, weighted_ce_loss, class_weights):
                  "loss": abs(card["loss"] - cpu32["loss"]) / abs(cpu32["loss"])},
         "loss_card": card["loss"],
     }
+
+
+def check_parity(par, where):
+    """``model_parity``'s errors against PARITY_TOL (the CPU's bf16 run) and
+    FP32_TOL (its fp32 run)."""
+    for ref, tols in (("bf16", PARITY_TOL), ("fp32", FP32_TOL)):
+        for k, tol in tols.items():
+            check(par[ref][k] <= tol, f"{where}: card vs CPU {ref}: {k} {par[ref][k]} > {tol}")
+
+
+def cadene_source(seed):
+    """A state_dict in the cadene ImageNet Xception's layout, from a seeded
+    CPU generator: convs kaiming-normal over their fan-in, BN scales near 1,
+    small shifts and means, variances in [0.5, 1.5]."""
+    from deepcam_tpu_torch.tools.import_torch_checkpoint import cadene_xception_shapes
+
+    gen = torch.Generator().manual_seed(seed)
+    src = {}
+    for k, shape in cadene_xception_shapes().items():
+        z = torch.randn(shape, generator=gen)
+        if k.endswith("running_var"):
+            z = torch.rand(shape, generator=gen) + 0.5
+        elif len(shape) == 1:
+            z = 0.1 * z + (1.0 if k.endswith(".weight") and not k.startswith("fc") else 0.0)
+        else:
+            z = z * math.sqrt(2.0 / math.prod(shape[1:]))
+        src[k] = z
+    return src
+
+
+def os8_phase(fs, smi):
+    """The output-stride-8 model with the interpolation decoder at full
+    width: a cadene-shaped backbone imported on the card (landed tensors
+    equal to the source, the rest at their init); one batch-4 train step
+    with every one of its 61 units held to the plain version; 1 warm-up and
+    3 timed AdamW steps, then the eval step, with the counters zeroed just
+    before and read just after each (61 launches per kernel per step, in
+    OS8_TRAIN_FORMS and OS8_EVAL_FORMS); the whole model in eval mode against
+    the CPU (``model_parity``)."""
+    from deepcam_tpu_torch.models.deeplab import DeepLabv3plus
+    from deepcam_tpu_torch.tools import import_torch_checkpoint as imp
+    from deepcam_tpu_torch.train.losses import FPW_1, FPW_2, class_weights, weighted_ce_loss
+    from deepcam_tpu_torch.train.optim import build_optimizer
+    from deepcam_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    batch = STEP_BATCH
+    model = DeepLabv3plus(n_classes=3, dtype=torch.bfloat16, device="cuda", seed=333, **OS8)
+
+    # the pretrained import on the card
+    raw = cadene_source(444)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    pairs, src = imp.pretrained_assignments(raw, model)
+    landed = imp.import_pretrained_xception(raw, model)
+    check(landed == len(pairs) == PRETRAINED_LANDED,
+          f"os8 import: {landed} tensors landed, {len(pairs)} assigned, "
+          f"want {PRETRAINED_LANDED}")
+    sd = model.state_dict()
+    for p_key, s_key in pairs:
+        check(torch.equal(sd[p_key].cpu(), src[s_key]), f"os8 import: {p_key} != {s_key}")
+    kept = [k for k in sd if k not in {p for p, _ in pairs}]
+    for k in kept:
+        check(torch.equal(sd[k], before[k]), f"os8 import: {k} changed")
+    del before, src, raw
+
+    opt = build_optimizer("AdamW", model.parameters(), 1e-3, eps=1e-8, weight_decay=1e-2)
+    state = create_train_state(model, opt)
+    step_fn = make_train_step(list(class_weights()), fpw_1=FPW_1, fpw_2=FPW_2)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.rand(batch, 768, 1152, 16, generator=gen, device="cuda").bfloat16()
+    y = torch.randint(0, 3, (batch, 768, 1152), generator=gen, device="cuda")
+    state, metrics, worst, units = checked_unit_step(fs, step_fn, state, x, y, OS8_TRAIN_FORMS,
+                                                     OS8_UNIT_DILATIONS)
+    units_out = {"units": len(units["fwd"]), "distinct_units": len(set(units["fwd"])),
+                 "worst_rel": worst, "loss": float(metrics["loss"])}
+
+    state, train = train_steps(fs, step_fn, state, x, y, TIMED_STEPS)
+    check_counts("os8", train["launches"], train["forms"], WARMUP_STEPS + TIMED_STEPS,
+                 OS8_TRAIN_FORMS, OS8_TRAIN_FORMS)
+
+    ev = eval_steps(fs, state, x, y, "os8 eval", OS8_EVAL_FORMS)
+    del model, opt, state, x, y, sd
+    torch.cuda.empty_cache()
+
+    par = model_parity(DeepLabv3plus, weighted_ce_loss, class_weights, **OS8)
+    check_parity(par, "os8 parity")
+    out = {"model": OS8, "batch": batch, "input": [batch, 768, 1152, 16],
+           "pretrained": {"landed": landed, "kept": len(kept)},
+           "units_step": units_out, "train": train, "eval": ev,
+           "parity": par, "phase_seconds": time.perf_counter() - t_phase,
+           "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    emit({"phase": "os8", **out})
+    return out
 
 
 def median(values):
@@ -1729,8 +1914,7 @@ def main():
         from deepcam_tpu_torch.train.losses import (
             FPW_1, FPW_2, class_weights, weighted_ce_loss)
         from deepcam_tpu_torch.train.optim import build_optimizer
-        from deepcam_tpu_torch.train.trainer import (
-            create_train_state, make_eval_step, make_train_step)
+        from deepcam_tpu_torch.train.trainer import create_train_state, make_train_step
     except ImportError as e:
         print(f"chip_smoke: run from the root of a checkout ({e})", file=sys.stderr)
         return 2
@@ -1781,7 +1965,8 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = torch.rand(batch, 768, 1152, 16, generator=gen, device="cuda").bfloat16()
     y = torch.randint(0, 3, (batch, 768, 1152), generator=gen, device="cuda")
-    state, metrics, worst, units = checked_unit_step(fs, step_fn, state, x, y)
+    state, metrics, worst, units = checked_unit_step(fs, step_fn, state, x, y, TRAIN_FORMS,
+                                                     UNIT_DILATIONS)
     emit({"phase": "units", "input": [batch, 768, 1152, 16], "units": len(units["fwd"]),
           "distinct_units": len(set(units["fwd"])), "worst_rel": worst,
           "tolerance": {**UNIT_TOL, "stats_own": STATS_OWN_TOL,
@@ -1815,29 +2000,17 @@ def main():
           "device": kind, "nvidia_smi": smi})
 
     # 6. the eval step at full width
-    eval_fn = make_eval_step(list(class_weights()), fpw_1=FPW_1, fpw_2=FPW_2)
-    valid = torch.tensor([1, 1, 1, 0], device="cuda")
-    eval_fn(state, x, y, valid)
-    torch.cuda.synchronize()
-    fs.reset_launches()
-    t1 = time.perf_counter()
-    for _ in range(EVAL_STEPS):
-        count, loss_sum, iou_sum = eval_fn(state, x, y, valid)
-    torch.cuda.synchronize()
-    eval_ms = (time.perf_counter() - t1) / EVAL_STEPS * 1e3
-    eval_launches = dict(fs.LAUNCHES)
-    eval_forms = measured_forms(fs)
-    check_counts("eval", eval_launches, eval_forms, EVAL_STEPS, EVAL_FORMS, {})
-    count, loss_sum, iou_sum = float(count), float(loss_sum), float(iou_sum)
-    check(count == 3.0 and math.isfinite(loss_sum) and loss_sum > 0
-          and 0.0 <= iou_sum <= 3.0, f"eval step: {count}, {loss_sum}, {iou_sum}")
-    emit({"phase": "eval", "batch": batch, "valid": valid.tolist(), "steps": EVAL_STEPS,
-          "ms_per_step": eval_ms, "count": count, "loss_mean": loss_sum / count,
-          "iou_mean": iou_sum / count, "launches": eval_launches, "forms": eval_forms})
-    del model, opt, state, eval_fn, x, y, watched
+    ev = eval_steps(fs, state, x, y, "eval", EVAL_FORMS)
+    emit({"phase": "eval", "batch": batch, **ev})
+    eval_launches, eval_forms = ev["launches"], ev["forms"]
+    del model, opt, state, x, y, watched
     torch.cuda.empty_cache()
 
-    # 7. train-mode middle-flow blocks (one, and two joined by the boundary
+    # 7. the output-stride-8 model with the interpolation decoder: the
+    # pretrained import, every unit of a step, timed steps, eval, parity
+    os8 = os8_phase(fs, smi)
+
+    # 8. train-mode middle-flow blocks (one, and two joined by the boundary
     # fold) and an AdamW step: card (bf16) against CPU (bf16)
     errs, yardsticks = block_parity(layers, XceptionBlock, build_optimizer)
     spread = yardsticks["pair_cpu_bf16_nudged_1e-6"]
@@ -1861,15 +2034,13 @@ def main():
                 check(emax <= tmax and enorm <= tnorm,
                       f"{case} {k}: {emax}, {enorm} > {tmax}, {tnorm}")
 
-    # 8. the whole model, eval mode: card against the CPU's bf16 and fp32 runs
+    # 9. the whole model, eval mode: card against the CPU's bf16 and fp32 runs
     par = model_parity(DeepLabv3plus, weighted_ce_loss, class_weights)
     emit({"phase": "parity", "input": [2, 64, 96, 16], "mode": "eval", **par,
           "tolerance": {"bf16": PARITY_TOL, "fp32": FP32_TOL}})
-    for ref, tols in (("bf16", PARITY_TOL), ("fp32", FP32_TOL)):
-        for k, tol in tols.items():
-            check(par[ref][k] <= tol, f"card vs CPU {ref}: {k} {par[ref][k]} > {tol}")
+    check_parity(par, "parity")
 
-    # 9. the training CLI at full width, with the counters zeroed just
+    # 10. the training CLI at full width, with the counters zeroed just
     # before and read just after each of its two runs
     cli = cli_phase(fs)
     emit({"phase": "cli_source", "source": cli["source"]})
@@ -1885,12 +2056,12 @@ def main():
     emit({"phase": "cli", **cli, "slice_step_ms_batch4": slice_default["ms_per_step"],
           "device": kind, "nvidia_smi": smi})
 
-    # 10. data parallelism: (a) world 1 on NCCL through the CLI, (b) two
+    # 11. data parallelism: (a) world 1 on NCCL through the CLI, (b) two
     # gloo ranks on the one card against their emulation in this process
     ddp = ddp_phase(fs, cli)
     emit({"phase": "ddp", **ddp, "device": kind, "nvidia_smi": smi})
 
-    # 11. each launch of both kernels on its own, at the headline shapes, and
+    # 12. each launch of both kernels on its own, at the headline shapes, and
     # one profiled training step
     split_phase(fs, rows, splits)
     del splits
@@ -1904,14 +2075,16 @@ def main():
     del model, opt, x, y
     torch.cuda.empty_cache()
 
-    # 12. the profiling entry point at full width, last: it runs the
+    # 13. the profiling entry point at full width, last: it runs the
     # profiler too
     with tempfile.TemporaryDirectory(prefix="deepcam_profile_") as out_dir:
         profile_phase(fs, smi, out_dir)
 
     # launches per step by form, over all the form's shapes, as measured
     # in the slice (default configuration) and eval phases
-    measured = (("train", slice_default["forms"], steps), ("eval", eval_forms, EVAL_STEPS))
+    measured = (("train", slice_default["forms"], steps), ("eval", eval_forms, EVAL_STEPS),
+                ("os8_train", os8["train"]["forms"], steps),
+                ("os8_eval", os8["eval"]["forms"], EVAL_STEPS))
     kernels = []
     for kname, fname, line in (("sepconv_fwd", "sepconv_fwd.cu", 343),
                                ("sepconv_bwd", "sepconv_bwd.cu", 510)):
@@ -1929,6 +2102,8 @@ def main():
                 step: {form: v / n for form, v in forms[kname].items()}
                 for step, forms, n in measured},
             "launches_by_path": {"slice": launches[kname], "eval": eval_launches[kname],
+                                 "os8": os8["train"]["launches"][kname],
+                                 "os8_eval": os8["eval"]["launches"][kname],
                                  **{tag: run["launches"][kname]
                                     for tag, run in cli["runs"].items()}}})
     kernels.append(probe)

@@ -1,6 +1,7 @@
 """DeepLabV3+ (counterpart of ``deepcam_tpu/models/deeplab.py``): aligned
-Xception encoder at output stride 16, ASPP with a global-average-pool
-branch, and the transposed-conv decoder.
+Xception encoder at output stride 16 or 8, ASPP with a global-average-pool
+branch, and the transposed-conv decoder (the reference's) or the
+bilinear-interpolation decoder (the reference's dormant alternative).
 
 Input (N, H, W, 16) NHWC → logits (N, H, W, n_classes) NHWC in fp32, as the
 JAX model.  Inside, activations are NCHW in ``torch.channels_last`` memory
@@ -13,6 +14,7 @@ import torch
 import torch.nn as nn
 
 from .. import resolve_device
+from ..ops.interpolate import resize_bilinear_align_corners
 from .layers import (
     BatchNorm2d,
     Conv2d,
@@ -61,7 +63,8 @@ class DeconvUpsampler(nn.Module):
         self.deconv3_bn = BatchNorm2d(256, dtype=dtype)
         self.last_deconv = ConvTranspose2d(256, n_classes, **kw)
 
-    def forward(self, x: torch.Tensor, low: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, low: torch.Tensor, size) -> torch.Tensor:
+        """``size``, the input's (H, W), is what four exact x2 deconvs give."""
         x = self.deconv1_bn(self.deconv1(x), relu=True)
         x = self.deconv2_bn(self.deconv2(x), relu=True)
         x = torch.cat([x, low.to(x.dtype)], dim=1).contiguous(
@@ -73,6 +76,37 @@ class DeconvUpsampler(nn.Module):
         return self.last_deconv(x)
 
 
+class InterpolationUpsampler(nn.Module):
+    """Bilinear-interpolation decoder: the ASPP output resized to a quarter
+    of the input (ceil), the 304→256 refinement stack, a 1×1 conv with bias
+    to the classes, and the logits resized to the input.  PyTorch-default
+    init throughout."""
+
+    def __init__(self, in_ch: int, low_ch: int, n_classes: int, *,
+                 dtype: torch.dtype, gen: torch.Generator):
+        super().__init__()
+        init = torch_default_conv_kernel_init
+        kw = dict(dtype=dtype, gen=gen)
+        self.conv0 = Conv2d(in_ch + low_ch, 256, 3, padding=1, kernel_init=init, **kw)
+        self.bn0 = BatchNorm2d(256, dtype=dtype)
+        self.conv1 = Conv2d(256, 256, 3, padding=1, kernel_init=init, **kw)
+        self.bn1 = BatchNorm2d(256, dtype=dtype)
+        self.conv2 = Conv2d(256, n_classes, 1, use_bias=True, kernel_init=init, **kw)
+
+    def forward(self, x: torch.Tensor, low: torch.Tensor, size) -> torch.Tensor:
+        h, w = size
+        x = resize_bilinear_align_corners(x, (-(-h // 4), -(-w // 4)))
+        x = torch.cat([x, low.to(x.dtype)], dim=1).contiguous(
+            memory_format=torch.channels_last)
+        x = self.bn0(self.conv0(x), relu=True)
+        x = self.bn1(self.conv1(x), relu=True)
+        return resize_bilinear_align_corners(self.conv2(x), (h, w))
+
+
+DECODERS = {"deconv": DeconvUpsampler, "interpolation": InterpolationUpsampler}
+ASPP_RATES = {16: (1, 6, 12, 18), 8: (1, 12, 24, 36)}
+
+
 class DeepLabv3plus(nn.Module):
     """DeepLabV3+ with the modified aligned Xception encoder.
 
@@ -80,18 +114,27 @@ class DeepLabv3plus(nn.Module):
     Weights are made from ``seed`` with a CPU ``torch.Generator`` and then
     moved to ``device``, so the same seed gives the same weights on any
     device.  ``train()`` / ``eval()`` select batch or running BN statistics.
+    ``decoder`` is "deconv" (the reference's) or "interpolation"; output
+    stride 8 needs the interpolation decoder.
     """
 
     def __init__(self, n_classes: int = 3, output_stride: int = 16, *,
-                 in_ch: int = 16, dtype: torch.dtype = torch.float32,
-                 device="cuda", seed: int = 0):
+                 decoder: str = "deconv", in_ch: int = 16,
+                 dtype: torch.dtype = torch.float32, device="cuda", seed: int = 0):
         super().__init__()
+        if decoder not in DECODERS:
+            raise ValueError(f"unknown decoder {decoder!r}")
+        if output_stride == 8 and decoder == "deconv":
+            raise ValueError(
+                "output_stride=8 needs decoder='interpolation': the deconv decoder's "
+                "two x2 deconvs before the concat take stride-16 features to the "
+                "low-level features' stride 4, and stride-8 features to stride 2")
         device = resolve_device(device)
-        self.dtype = dtype
+        self.dtype, self.decoder = dtype, decoder
         gen = torch.Generator().manual_seed(seed)
         kw = dict(dtype=dtype, gen=gen)
         self.xception = Xception(in_ch, output_stride, **kw)
-        self.rates = (1, 6, 12, 18)
+        self.rates = ASPP_RATES[output_stride]
         for i, r in enumerate(self.rates):
             setattr(self, f"aspp{i + 1}", ASPPModule(2048, 256, r, **kw))
         init = torch_default_conv_kernel_init
@@ -101,11 +144,12 @@ class DeepLabv3plus(nn.Module):
         self.bn1 = BatchNorm2d(256, dtype=dtype)
         self.conv2 = Conv2d(128, 48, 1, kernel_init=init, **kw)
         self.bn2 = BatchNorm2d(48, dtype=dtype)
-        self.upsample = DeconvUpsampler(256, 48, n_classes, **kw)
+        self.upsample = DECODERS[decoder](256, 48, n_classes, **kw)
         self.to(device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (N, H, W, C) NHWC → fp32 logits (N, H, W, n_classes) NHWC."""
+        size = x.shape[1:3]
         x = x.permute(0, 3, 1, 2).to(self.dtype).contiguous(
             memory_format=torch.channels_last)
         feats, low_level = self.xception(x)
@@ -115,9 +159,8 @@ class DeepLabv3plus(nn.Module):
         # align-corners upsample from 1×1, which is a broadcast
         gap = feats.float().mean(dim=(2, 3), keepdim=True).to(self.dtype)
         gap = self.gap_bn(self.gap_conv(gap), relu=True)
-        branches.append(gap.expand(-1, -1, *feats.shape[2:]))
+        branches.append(resize_bilinear_align_corners(gap, feats.shape[2:]))
         x = torch.cat(branches, dim=1).contiguous(memory_format=torch.channels_last)
         x = self.bn1(self.conv1(x), relu=True)
         low = self.bn2(self.conv2(low_level), relu=True)
-        out = self.upsample(x, low)
-        return out.float().permute(0, 2, 3, 1)
+        return self.upsample(x, low, size).float().permute(0, 2, 3, 1)

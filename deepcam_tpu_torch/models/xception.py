@@ -1,10 +1,11 @@
 """Modified aligned Xception backbone (counterpart of
-``deepcam_tpu/models/xception.py``), output stride 16.
+``deepcam_tpu/models/xception.py``), output stride 16 or 8.
 
 Entry flow (2 convs + 3 down-sampling blocks), 16 identical 728-channel
 middle blocks, exit flow (block20 + three dilated separable convs to 2048
-channels).  Every stride-1 separable conv (60 per forward) runs through the
-fused sepconv kernel.  By default this is the JAX model's default path: each
+channels).  Every stride-1 separable conv (60 per forward at output stride
+16, 61 at 8, where block3's tail runs at stride 1) runs through the fused
+sepconv kernel.  By default this is the JAX model's default path: each
 rep BatchNorm whose only consumer is the next sepconv hands its apply to that
 unit's kernel (BN-apply fold), train-mode units emit the following BN's
 statistics, and the middle-flow blocks pass their chain-final (raw output,
@@ -120,16 +121,21 @@ class XceptionBlock(nn.Module):
 
 
 class Xception(nn.Module):
-    """Modified aligned Xception encoder at output stride 16.  Returns
-    (features, 2048 channels at stride 16; low-level features, 128 channels
-    at stride 4)."""
+    """Modified aligned Xception encoder.  Returns (features, 2048 channels
+    at stride ``output_stride``; low-level features, 128 channels at stride
+    4).  At output stride 8 block3 keeps the resolution (its tail is a
+    stride-1 ``sepconv_last``), the middle flow runs at dilation 2 and the
+    exit flow at (2, 4), as the JAX model builds it."""
 
     def __init__(self, in_ch: int = 16, output_stride: int = 16, *,
                  dtype: torch.dtype = torch.float32, gen: torch.Generator):
         super().__init__()
-        if output_stride != 16:
-            raise NotImplementedError(
-                f"output_stride {output_stride}: the port runs os=16 only")
+        if output_stride == 16:
+            block3_stride, middle_rate, exit_rates = 2, 1, (1, 2)
+        elif output_stride == 8:
+            block3_stride, middle_rate, exit_rates = 1, 2, (2, 4)
+        else:
+            raise NotImplementedError(f"output_stride {output_stride} not supported")
         kw = dict(dtype=dtype, gen=gen)
         self.conv1 = Conv2d(in_ch, 32, 3, stride=2, padding=1, **kw)
         self.bn1 = BatchNorm2d(32, dtype=dtype)
@@ -137,15 +143,17 @@ class Xception(nn.Module):
         self.bn2 = BatchNorm2d(64, dtype=dtype)
         self.block1 = XceptionBlock(64, 128, 2, stride=2, start_with_relu=False, **kw)
         self.block2 = XceptionBlock(128, 256, 2, stride=2, **kw)
-        self.block3 = XceptionBlock(256, 728, 2, stride=2, is_last=True, **kw)
+        self.block3 = XceptionBlock(256, 728, 2, stride=block3_stride, is_last=True, **kw)
         for i in range(4, 20):
-            setattr(self, f"block{i}", XceptionBlock(728, 728, 3, **kw))
-        self.block20 = XceptionBlock(728, 1024, 2, grow_first=False, is_last=True, **kw)
-        self.conv3 = SeparableConv2dSame(1024, 1536, dilation=2, **kw)
+            setattr(self, f"block{i}", XceptionBlock(728, 728, 3, dilation=middle_rate, **kw))
+        self.block20 = XceptionBlock(728, 1024, 2, dilation=exit_rates[0], grow_first=False,
+                                     is_last=True, **kw)
+        rate = exit_rates[1]
+        self.conv3 = SeparableConv2dSame(1024, 1536, dilation=rate, **kw)
         self.bn3 = BatchNorm2d(1536, dtype=dtype)
-        self.conv4 = SeparableConv2dSame(1536, 1536, dilation=2, pre_relu=True, **kw)
+        self.conv4 = SeparableConv2dSame(1536, 1536, dilation=rate, pre_relu=True, **kw)
         self.bn4 = BatchNorm2d(1536, dtype=dtype)
-        self.conv5 = SeparableConv2dSame(1536, 2048, dilation=2, pre_relu=True, **kw)
+        self.conv5 = SeparableConv2dSame(1536, 2048, dilation=rate, pre_relu=True, **kw)
         self.bn5 = BatchNorm2d(2048, dtype=dtype)
 
     def forward(self, x: torch.Tensor):

@@ -56,7 +56,8 @@
 // keeps 2 channels' 9 (or 11) partial sums, within 128 registers, two or
 // more blocks per SM.  d_pw splits the pixel axis only as far as needed to
 // give the card about four blocks per SM, so its partial buffer stays within
-// tens of MB.  Work splits: `bwd_plan` in ops/fused_sepconv.py.
+// tens of MB; inside a slice the tensor cores accumulate runs of 512 pixels,
+// added in fp32.  Work splits: `bwd_plan` in ops/fused_sepconv.py.
 #include "tile_mma.cuh"
 
 namespace dsc {
@@ -112,11 +113,23 @@ inline int gemm_smem_bytes(int stages, int boxes) {
 // [...]: warpgroup g multiplies A by B box g.  `prep(stage, k)` may rewrite
 // the stage's boxes first (it returns whether it did).  The first stage
 // overwrites the accumulators; each later one keeps one wgmma batch in
-// flight and hands the stage before it back to the producer.
-template <bool A_MN, bool B_MN, typename Prep>
+// flight and hands the stage before it back to the producer.  With RUN > 0
+// the tensor cores accumulate runs of at most RUN stages: at the start of
+// each later run the accumulators, once complete, are added into fp32
+// totals (round to nearest) and restart.  The tensor cores' own fp32
+// accumulation drifts along a long K: on an H100, d_pw of the os=8 exit unit
+// summed over 27648 pixels in one run lay 3.5e-5 of its largest entry from
+// the fp64 sum, 9.5x an fp32 cuBLAS matmul's error, and in runs of 512
+// pixels 6.9e-7 (analysis/dpw_accuracy.py, cancelling operands).
+template <bool A_MN, bool B_MN, int RUN, typename Prep>
 __device__ __forceinline__ void gemm_consume(Acc& acc, Ring& ring, unsigned char* ring_mem,
                                              int stage_bytes, int nk, Prep prep) {
   const int wg = threadIdx.x >> 7;
+  Acc total;
+  if (RUN > 0) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) total[i] = 0.f;
+  }
 #pragma unroll 1
   for (int k = 0; k < nk; ++k) {
     unsigned char* st = ring_mem + ring.wait(k) * stage_bytes;
@@ -124,9 +137,16 @@ __device__ __forceinline__ void gemm_consume(Acc& acc, Ring& ring, unsigned char
       fence_async_smem();
       consumer_sync(GEMM_CONSUMERS);
     }
+    const bool restart = RUN > 0 && k > 0 && k % RUN == 0;
+    if (restart) {
+      wgmma_wait<0>();
+      acc_fence(acc);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) total[i] += acc[i];
+    }
     acc_fence(acc);
     wgmma_fence();
-    wgmma_box<A_MN, B_MN>(acc, st, st + (1 + wg) * BOX_BYTES, k > 0);
+    wgmma_box<A_MN, B_MN>(acc, st, st + (1 + wg) * BOX_BYTES, k > 0 && !restart);
     wgmma_commit();
     wgmma_wait<1>();
     acc_fence(acc);
@@ -134,6 +154,10 @@ __device__ __forceinline__ void gemm_consume(Acc& acc, Ring& ring, unsigned char
   }
   wgmma_wait<0>();
   acc_fence(acc);
+  if (RUN > 0) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] += total[i];
+  }
   ring.release(nk - 1);
 }
 
@@ -189,7 +213,7 @@ dd_kernel(const __grid_constant__ CUtensorMap g_map, const __grid_constant__ CUt
     return;
   }
   Acc acc;
-  gemm_consume<false, false>(acc, ring, ring_mem, STAGE, nk, [&](unsigned char* st, int k) {
+  gemm_consume<false, false, 0>(acc, ring, ring_mem, STAGE, nk, [&](unsigned char* st, int k) {
     if (!FOLD) return false;
 #pragma unroll
     for (int q = 0; q < 2; ++q)
@@ -401,7 +425,8 @@ dx_ddw_kernel(const bf16* __restrict__ x, const float* __restrict__ dd,
 }
 
 // ---- 4. per-slice partials of d_pw = d^T . g' :  M = C (64), N = F (128),
-// K = the slice's pixels ----
+// K = the slice's pixels, on the tensor cores in runs of DPW_RUN boxes ----
+constexpr int DPW_RUN = 8;  // 512 pixels
 // Stage: [d box (pixels x c0..)][g box (pixels x f0..)][g box (f0+64..)]
 // [y box][y box]; the slices start at multiples of 64 pixels.
 template <bool FOLD>
@@ -441,7 +466,8 @@ dpw_kernel(const __grid_constant__ CUtensorMap d_map, const __grid_constant__ CU
     return;
   }
   Acc acc;
-  gemm_consume<true, true>(acc, ring, ring_mem, STAGE, nk, [&](unsigned char* st, int k) {
+  gemm_consume<true, true, DPW_RUN>(acc, ring, ring_mem, STAGE, nk,
+                                    [&](unsigned char* st, int k) {
     if (!FOLD) return false;
     const long pix = kbeg + (long)k * BOX;
 #pragma unroll

@@ -39,7 +39,8 @@ product accumulates in fp32 and rounds to the input type; Σy and Σy² are
 fp32 sums of the rounded y.  The backward folds the statistics cotangent into
 g as ``bf16(g + (gs1 + 2·y·gs2))``, adds r's outside cotangent before the
 ReLU mask, compares u in fp32 for the mask, keeps dd = g·pwᵀ in fp32 and
-returns d_dw, d_pw, da and db as fp32 sums.
+returns d_dw, d_pw, da and db as fp32 sums; the kernel accumulates d_pw on
+the tensor cores in runs of 512 pixels, the runs added in fp32.
 
 Layout is the JAX package's: x, skip, r (N, H, W, C), dwk (3, 3, C),
 pwk (C, F), a, b (C,), y (N, H, W, F), Σy and Σy² (F,).

@@ -11,7 +11,10 @@ statistics, the order its optimizer indexes parameters in.
 
 Layouts agree (OIHW, depthwise (C, 1, 3, 3), transposed conv (I, O, 3, 3)),
 so the map only renames.  It raises on a port tensor it leaves unassigned
-or assigns twice.
+or assigns twice, and on a model with the interpolation decoder: the
+reference names its decoder after the deconv one's modules, and the repo
+holds no reference schema for the interpolation decoder (the JAX package's
+importer maps the deconv decoder only).
 """
 
 from __future__ import annotations
@@ -25,66 +28,78 @@ BN_KEYS = ("weight", "bias", "running_mean", "running_var")
 BUFFER_SUFFIXES = (".running_mean", ".running_var")
 
 
-def reference_names(model: torch.nn.Module) -> List[Tuple[str, str]]:
-    """[(port state_dict key, reference key without ``module.``), ...] for
-    every tensor of the port's ``DeepLabv3plus``, in the reference's order."""
-    out: List[Tuple[str, str]] = []
+def conv_names(port: str, ref: str, bias: bool = False) -> List[Tuple[str, str]]:
+    """(port key, reference key) of a conv's weight, and its bias."""
+    return [(f"{port}.weight", f"{ref}.weight")] + (
+        [(f"{port}.bias", f"{ref}.bias")] if bias else [])
 
-    def conv(port, ref, bias=False):
-        out.append((f"{port}.weight", f"{ref}.weight"))
-        if bias:
-            out.append((f"{port}.bias", f"{ref}.bias"))
 
-    def bn(port, ref):
-        out.extend((f"{port}.{k}", f"{ref}.{k}") for k in BN_KEYS)
+def bn_names(port: str, ref: str) -> List[Tuple[str, str]]:
+    return [(f"{port}.{k}", f"{ref}.{k}") for k in BN_KEYS]
 
-    def sep(port, ref):
-        out.append((f"{port}.depthwise.weight", f"{ref}.conv1.weight"))
-        out.append((f"{port}.pointwise.weight", f"{ref}.pointwise.weight"))
 
-    x, xr = model.xception, "xception_features"
-    conv("xception.conv1", f"{xr}.conv1")
-    bn("xception.bn1", f"{xr}.bn1")
-    conv("xception.conv2", f"{xr}.conv2")
-    bn("xception.bn2", f"{xr}.bn2")
+def sep_names(port: str, ref: str) -> List[Tuple[str, str]]:
+    """A separable conv: the reference's ``conv1`` is the depthwise."""
+    return [(f"{port}.depthwise.weight", f"{ref}.conv1.weight"),
+            (f"{port}.pointwise.weight", f"{ref}.pointwise.weight")]
+
+
+def xception_names(x: torch.nn.Module) -> List[Tuple[str, str]]:
+    """[(port key, reference key), ...] of the backbone ``model.xception``
+    at either output stride, in the reference's order."""
+    xr = "xception_features"
+    out = conv_names("xception.conv1", f"{xr}.conv1") + bn_names("xception.bn1", f"{xr}.bn1")
+    out += conv_names("xception.conv2", f"{xr}.conv2") + bn_names("xception.bn2", f"{xr}.bn2")
     blocks = sorted((int(n[5:]), n) for n, _ in x.named_children() if n.startswith("block"))
     for _, name in blocks:
         blk, p, r = getattr(x, name), f"xception.{name}", f"{xr}.{name}"
         # the reference registers the skip before its rep Sequential
         if blk.skip_conv is not None:
-            conv(f"{p}.skip_conv", f"{r}.skip")
-            bn(f"{p}.skip_bn", f"{r}.skipbn")
+            out += conv_names(f"{p}.skip_conv", f"{r}.skip")
+            out += bn_names(f"{p}.skip_bn", f"{r}.skipbn")
         # rep = [ReLU, sepconv, BN] per unit, without the first ReLU when
         # the block does not start with one, then the bare tail sepconv
+        # (stride 2, or stride 1 with is_last)
         first = 1 if blk.start_with_relu else 0
         for i in range(blk.n_units):
-            sep(f"{p}.sepconv{i}", f"{r}.rep.{3 * i + first}")
-            bn(f"{p}.bn{i}", f"{r}.rep.{3 * i + first + 1}")
+            out += sep_names(f"{p}.sepconv{i}", f"{r}.rep.{3 * i + first}")
+            out += bn_names(f"{p}.bn{i}", f"{r}.rep.{3 * i + first + 1}")
         if blk.tail is not None:
-            sep(f"{p}.{blk.tail}", f"{r}.rep.{3 * blk.n_units + first - 1}")
+            out += sep_names(f"{p}.{blk.tail}", f"{r}.rep.{3 * blk.n_units + first - 1}")
     for i in (3, 4, 5):
-        sep(f"xception.conv{i}", f"{xr}.conv{i}")
-        bn(f"xception.bn{i}", f"{xr}.bn{i}")
+        out += sep_names(f"xception.conv{i}", f"{xr}.conv{i}")
+        out += bn_names(f"xception.bn{i}", f"{xr}.bn{i}")
+    return out
+
+
+def reference_names(model: torch.nn.Module) -> List[Tuple[str, str]]:
+    """[(port state_dict key, reference key without ``module.``), ...] for
+    every tensor of the port's ``DeepLabv3plus``, in the reference's order."""
+    if model.decoder != "deconv":
+        raise NotImplementedError(
+            f"reference_names: no reference checkpoint schema for the {model.decoder!r} "
+            "decoder (the reference schema names the deconv decoder only)")
+    out = xception_names(model.xception)
     for i in range(1, len(model.rates) + 1):
-        conv(f"aspp{i}.atrous_conv", f"aspp{i}.atrous_convolution")
-        bn(f"aspp{i}.bn", f"aspp{i}.bn")
-    conv("gap_conv", "global_avg_pool.1")
-    bn("gap_bn", "global_avg_pool.2")
-    conv("conv1", "conv1")
-    bn("bn1", "bn1")
-    conv("conv2", "conv2")
-    bn("bn2", "bn2")
+        out += conv_names(f"aspp{i}.atrous_conv", f"aspp{i}.atrous_convolution")
+        out += bn_names(f"aspp{i}.bn", f"aspp{i}.bn")
+    out += conv_names("gap_conv", "global_avg_pool.1")
+    out += bn_names("gap_bn", "global_avg_pool.2")
+    out += conv_names("conv1", "conv1")
+    out += bn_names("bn1", "bn1")
+    out += conv_names("conv2", "conv2")
+    out += bn_names("bn2", "bn2")
     for k in (1, 2):
-        conv(f"upsample.deconv{k}", f"upsample.deconv{k}.0")
-        bn(f"upsample.deconv{k}_bn", f"upsample.deconv{k}.1")
-    conv("upsample.conv0", "upsample.conv1.0")
-    bn("upsample.bn0", "upsample.conv1.1")
-    conv("upsample.conv1", "upsample.conv1.3")
-    bn("upsample.bn1", "upsample.conv1.4")
-    conv("upsample.conv2", "upsample.conv1.6", bias=True)
-    conv("upsample.deconv3", "upsample.deconv3.0")
-    bn("upsample.deconv3_bn", "upsample.deconv3.1")
-    conv("upsample.last_deconv", "upsample.last_deconv.0")
+        out += conv_names(f"upsample.deconv{k}", f"upsample.deconv{k}.0")
+        out += bn_names(f"upsample.deconv{k}_bn", f"upsample.deconv{k}.1")
+    out += conv_names("upsample.conv0", "upsample.conv1.0")
+    out += bn_names("upsample.bn0", "upsample.conv1.1")
+    out += conv_names("upsample.conv1", "upsample.conv1.3")
+    out += bn_names("upsample.bn1", "upsample.conv1.4")
+    out += conv_names("upsample.conv2", "upsample.conv1.6", bias=True)
+    out += conv_names("upsample.deconv3", "upsample.deconv3.0")
+    out += bn_names("upsample.deconv3_bn", "upsample.deconv3.1")
+    out += conv_names("upsample.last_deconv", "upsample.last_deconv.0")
 
     port_keys = Counter(p for p, _ in out)
     have = set(model.state_dict())

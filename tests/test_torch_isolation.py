@@ -16,13 +16,15 @@ PORT = ROOT / "deepcam_tpu_torch"
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "optax", "deepcam_tpu")
 # the data-parallel modules: the process-group wireup and the collectives;
 # the profiling entry point and its tables, the observability modules and
-# the offline data tools
+# the offline data tools; the resize op and the checkpoint importer
 NAMED_MODULES = ("deepcam_tpu_torch.core.mesh", "deepcam_tpu_torch.parallel.collectives",
                 "deepcam_tpu_torch.cli.profile", "deepcam_tpu_torch.profiling.profiler",
                 "deepcam_tpu_torch.profiling.op_table", "deepcam_tpu_torch.profiling.op_profile",
                 "deepcam_tpu_torch.profiling.roofline_plot", "deepcam_tpu_torch.obs.visualizer",
                 "deepcam_tpu_torch.obs.wandb_utils", "deepcam_tpu_torch.obs.analysis",
-                "deepcam_tpu_torch.tools.split_data", "deepcam_tpu_torch.tools.summarize_data")
+                "deepcam_tpu_torch.tools.split_data", "deepcam_tpu_torch.tools.summarize_data",
+                "deepcam_tpu_torch.ops.interpolate",
+                "deepcam_tpu_torch.tools.import_torch_checkpoint")
 
 PROBE = """
 import importlib, pkgutil, sys

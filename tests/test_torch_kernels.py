@@ -73,11 +73,19 @@ TRAIN_UNITS = [
     (4, 48, 72, 728, 728, 1), (4, 48, 72, 728, 1024, 1), (4, 48, 72, 1024, 1024, 1),
     (4, 48, 72, 1024, 1536, 2), (4, 48, 72, 1536, 1536, 2), (4, 48, 72, 1536, 2048, 2),
 ]
+# the fused unit shapes that only the output-stride-8 model adds: the
+# middle flow and block20's units at 96 x 144 and dilation 2, block20's
+# sepconv_last there, exit conv3-5 at dilation 4 (block3's stride-1 tail
+# runs at the entry shape 728→728 @ 96 x 144)
+OS8_UNITS = [
+    (4, 96, 144, 728, 728, 2), (4, 96, 144, 728, 1024, 2), (4, 96, 144, 1024, 1024, 1),
+    (4, 96, 144, 1024, 1536, 4), (4, 96, 144, 1536, 1536, 4), (4, 96, 144, 1536, 2048, 4),
+]
 # ragged shapes: C, F off multiples of 16 or 64, P off a multiple of 64
 RAGGED_UNITS = [(1, 9, 13, 24, 40, 1), (1, 7, 11, 728, 88, 1), (2, 5, 9, 40, 728, 2)]
 
 
-@pytest.mark.parametrize("n,h,w,c,f,dil", TRAIN_UNITS + RAGGED_UNITS)
+@pytest.mark.parametrize("n,h,w,c,f,dil", TRAIN_UNITS + OS8_UNITS + RAGGED_UNITS)
 @pytest.mark.parametrize("sms", [132, 114])  # H100 SXM, H100 PCIe
 def test_fwd_plan_fits(n, h, w, c, f, dil, sms):
     """The forward's plan: the resident d tile, the halo buffer (staged)
@@ -113,20 +121,25 @@ def test_fwd_plan_at_the_train_shapes():
     """The plans written down in PERF.md, by (C, F, dilation): h staged in
     8 x 8 tiles everywhere but C = 1536; two blocks per SM up to C = 256,
     with pw preloaded up to 128→256; ring stages 3 at C = 256, 6 at 728, 4
-    at 1024, 2 at 1536."""
+    at 1024, 2 at 1536.  The output-stride-8 shapes keep their (C, F)'s
+    plan at dilation 2 and 4: the 1024→1536 halo at dilation 4 still fits
+    one block."""
     want = {(64, 128, 1): (fs.PRELOADED_2, 1), (128, 128, 1): (fs.PRELOADED_2, 2),
             (128, 256, 1): (fs.PRELOADED_2, 4), (256, 256, 1): (fs.STAGED_2, 3),
             (256, 728, 1): (fs.STAGED_2, 3), (728, 728, 1): (fs.STAGED_1, 6),
             (728, 1024, 1): (fs.STAGED_1, 6), (1024, 1024, 1): (fs.STAGED_1, 4),
             (1024, 1536, 2): (fs.STAGED_1, 4), (1536, 1536, 2): (fs.UNSTAGED, 2),
-            (1536, 2048, 2): (fs.UNSTAGED, 2)}
-    for n, h, w, c, f, dil in TRAIN_UNITS:
+            (1536, 2048, 2): (fs.UNSTAGED, 2), (728, 728, 2): (fs.STAGED_1, 6),
+            (728, 1024, 2): (fs.STAGED_1, 6), (1024, 1536, 4): (fs.STAGED_1, 4),
+            (1536, 1536, 4): (fs.UNSTAGED, 2), (1536, 2048, 4): (fs.UNSTAGED, 2)}
+    for n, h, w, c, f, dil in TRAIN_UNITS + OS8_UNITS:
         plan = fs.fwd_plan(n, h, w, c, f, dil, 132)
         assert (plan.mode, plan.stages) == want[c, f, dil], (c, f)
     assert fs.fwd_plan(4, 48, 72, 728, 728, 1, 132).waves == pytest.approx(216 / 132)
 
 
-@pytest.mark.parametrize("n,h,w,c,f,dil", TRAIN_UNITS + RAGGED_UNITS + [(2, 4, 6, 1024, 1536, 1)])
+@pytest.mark.parametrize("n,h,w,c,f,dil",
+                         TRAIN_UNITS + OS8_UNITS + RAGGED_UNITS + [(2, 4, 6, 1024, 1536, 1)])
 @pytest.mark.parametrize("fold", [False, True])
 @pytest.mark.parametrize("sms", [132, 114])  # H100 SXM, H100 PCIe
 def test_bwd_plan_bounds_partials(n, h, w, c, f, dil, fold, sms):
@@ -195,6 +208,10 @@ CARD_TOL = {"y": 2e-2, "dx": 2e-2, "dskip": 2e-2, "ddw": 1e-3, "dpw": 1e-3,
     (1, 24, 36, 1536, 2048, True, 2),
     (1, 96, 144, 64, 128, False, 1),
     (1, 9, 13, 24, 40, True, 1),
+    # the output-stride-8 dilations: the staged halo at 2, the unstaged
+    # taps at 4
+    (1, 24, 36, 728, 728, True, 2),
+    (1, 24, 36, 1536, 2048, True, 4),
 ])
 def test_forms_match_plain_on_card(form, n, h, w, c, f, pre_relu, dilation):
     """Every other form against the plain version on the card: r and d
@@ -252,6 +269,26 @@ def test_forms_match_plain_on_card(form, n, h, w, c, f, pre_relu, dilation):
     if stats:
         again_fwd = fs.sepconv_fwd(x, dwk, pwk, pre_relu, dilation, False, emit_stats=True, **kw)
         assert torch.equal(out.stats, again_fwd.stats)
+
+
+@pytest.mark.gpu
+def test_dpw_long_slice_near_fp64_on_card():
+    """d_pw over slices of 27648 pixels (the output-stride-8 exit unit at
+    batch 4) on cancelling operands, as behind a train-mode BN
+    (``analysis/dpw_accuracy.py``): the kernel's d_pw lies no further from
+    the fp64 sum of the same bf16 operands than the plain version's fp32
+    matmul does.  On an H100 the kernel read 6.9e-7 of the largest entry
+    and the fp32 matmul 3.7e-6, where one run of tensor-core accumulation
+    along the whole slice read 3.5e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from deepcam_tpu_torch.analysis import dpw_accuracy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    res = dpw_accuracy.measure(4, 96, 144, 1536, 2048, 4, flush)
+    assert res["pixels_per_slice"] == 27648
+    assert res["kernel"] <= res["plain"], res
 
 
 @pytest.mark.gpu

@@ -112,17 +112,19 @@ def port_base_config():
         layers.set_fused_stats(stats)
 
 
-def port_variables(seed: int, n_classes: int = 3):
+def port_variables(seed: int, n_classes: int = 3, **model_kw):
     """{"params", "batch_stats"} of the JAX DeepLabv3plus as numpy trees,
     from the port's own seeded initialisation through the weight bridge: the
-    same tree as the JAX model's ``init`` (``test_torch_weights.py``), at a
-    fraction of the cost of compiling that init."""
+    same tree as the JAX model's ``init`` (``test_torch_weights.py``,
+    ``test_torch_variants.py``), at a fraction of the cost of compiling that
+    init.  ``model_kw`` (``output_stride``, ``decoder``) go to the port's
+    model."""
     import torch
 
     from deepcam_tpu_torch.models.deeplab import DeepLabv3plus
     from deepcam_tpu_torch.tools.weights import state_dict_to_jax
 
-    model = DeepLabv3plus(n_classes, dtype=torch.float32, device="cpu", seed=seed)
+    model = DeepLabv3plus(n_classes, dtype=torch.float32, device="cpu", seed=seed, **model_kw)
     params, stats = state_dict_to_jax(model, model.state_dict())
     return {"params": params, "batch_stats": stats}
 
