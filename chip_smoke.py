@@ -123,13 +123,38 @@ otherwise.  Phases, each printing JSON lines:
    read the same IoU; rank 0 alone writes a checkpoint and log
    lines.  The gloo step time is printed labelled: gloo stages the
    tensors through the host.
-12. split  — at the affine_stats middle and exit shapes and the stats
+12. spatial — spatial H-sharding (``parallel/spatial.py``): one spatial
+   group of two ranks, child processes of this script in a gloo group on
+   the one card (NCCL refuses two ranks on one card), the full-width os=16
+   deconv model from seed 333 (bf16, AdamW lr 1e-3, wd 1e-2, the default
+   configuration) on a global batch of 2 synthetic (768, 1152, 16)
+   samples, each rank holding (2, 384, 1152, 16) and its labels.  Each
+   rank: one forward and backward (the probe) with all 60 units held to the
+   plain version as in phase 4, at the shard shapes (forms and dilations
+   as in phase 5); 2 AdamW steps of ``make_train_step_spatial`` with the
+   counters zeroed just before and read just after (60 launches per kernel
+   per step per rank, in the slice's forms), each step's time labelled
+   ``gloo_staged`` (gloo stages the halos through the host) and the peak
+   memory; the ranks' parameters and running statistics bit-identical after
+   the steps; ``make_eval_step_spatial`` over 3 samples (rank 1 adds
+   zeros).  The probe runs again in eval mode with random running
+   statistics.  Then this process runs the same model unsharded at batch
+   2: each probe's loss (the group's mean), the ranks' logits joined along
+   H and every gradient against it, in eval mode with phase 9's limits
+   (PARITY_TOL), in train mode the loss so and the logits and gradients
+   within SPATIAL_SPREAD times the unsharded probe's own move under one
+   bf16 rounding of its inputs (train mode at init is that chaotic); and
+   the eval of rank 0's trained state against the spatial eval
+   (SPATIAL_EVAL_TOL).  The kernels
+   phase times the middle flow's shard shapes, 728→728 @ 24x72 (S=2) and
+   @ 12x72 (S=4), in the affine_stats and boundary_stats forms.
+13. split  — at the affine_stats middle and exit shapes and the stats
    entry shape, each launch of both kernels timed on its own; and one
    default-configuration training step (batch 4, after a warm-up) with the
    card's time by kernel, read through ``profiling/op_table.py``.  Both
    with torch.profiler: once the profiler has run, launches stay traced and
    slower, so only the profile phase comes after.
-13. profile — the profiling entry point (``cli/profile.py:main``) at its
+14. profile — the profiling entry point (``cli/profile.py:main``) at its
    defaults, full width (768, 1152, 16), local batch 2, AdamW, bf16, 1
    warm-up and 4 profiled steps, with the counters zeroed just before and
    read just after: (A) without a trace, (B) with ``--profile Backward``.
@@ -149,6 +174,7 @@ Then the ``kernels`` JSON line, the nvidia-smi line, and as the last line
 exits non-zero and prints no result.
 """
 
+import contextlib
 import datetime
 import functools
 import gc
@@ -187,6 +213,11 @@ KERNEL_CASES = [
     ("boundary", "os8_middle_728x728_96x144_d2", 4, 96, 144, 728, 728, True, 2),
     ("affine", "os8_block3_last_728x728_96x144", 4, 96, 144, 728, 728, False, 1),
     ("affine_stats", "os8_exit_1536x2048_96x144_d4", 4, 96, 144, 1536, 2048, True, 4),
+    # the middle flow's H-shards of spatial sharding at batch 2: S=2 and S=4
+    ("affine_stats", "spatial2_middle_728x728_24x72", 2, 24, 72, 728, 728, True, 1),
+    ("boundary_stats", "spatial2_middle_728x728_24x72", 2, 24, 72, 728, 728, True, 1),
+    ("affine_stats", "spatial4_middle_728x728_12x72", 2, 12, 72, 728, 728, True, 1),
+    ("boundary_stats", "spatial4_middle_728x728_12x72", 2, 12, 72, 728, 728, True, 1),
 ]
 # 32 of the 60 units of a train step run this form at this shape
 HEADLINE = ("affine_stats", "middle_728x728_48x72")
@@ -1598,7 +1629,8 @@ def ddp_child_gloo(job):
 def ddp_child(job):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    result = ddp_child_cli(job) if job["kind"] == "cli" else ddp_child_gloo(job)
+    child = {"cli": ddp_child_cli, "gloo": ddp_child_gloo, "spatial": spatial_child}
+    result = child[job["kind"]](job)
     with open(job["result"], "w") as f:
         json.dump(result, f)
     return 0
@@ -1773,6 +1805,267 @@ def ddp_phase(fs, cli):
             "note": "gloo stages CUDA tensors through the host: its step time says "
                     "nothing about scaling"}
     return result
+
+
+# spatial phase: one spatial group of SPATIAL_S ranks on the one card over
+# gloo (NCCL refuses two ranks on one card), the full-width os=16 model from
+# seed 333 with AdamW; a global batch of SPATIAL_BATCH samples of (768,
+# 1152, 16), each rank holding 768 / SPATIAL_S rows of every sample
+SPATIAL_S = 2
+SPATIAL_BATCH = 2
+SPATIAL_SHAPE = (768, 1152)
+SPATIAL_STEPS = 2
+SPATIAL_EVAL_VALID = (1.0, 1.0, 1.0)
+# the spatial eval against the unsharded eval of the same state on the
+# card: the per-sample loss sum relative, the IoU sum absolute over the 3
+# samples (bf16 edge rows move a few argmax ties)
+SPATIAL_EVAL_TOL = {"loss_sum": 1e-2, "iou_sum": 1e-2}
+# The train-mode probe's logits and gradients against the unsharded ones
+# measure the yardstick, not the port: on an H100 one bf16 rounding of the
+# inputs (scaled by 1 + 2^-8 N(0, 1)) moved the unsharded probe's logits by
+# 0.65 of the largest and its gradients by 1.35 (median, norm), where the
+# spatial probe read 0.38 and 1.17.  So there the logits and gradients are
+# held to SPATIAL_SPREAD times that nudged spread, measured in the same
+# run, and the loss to PARITY_TOL; the eval-mode probe (random running
+# statistics, no batch statistics coupling the rows) is held to
+# PARITY_TOL (measured 0.033, 1.8e-5, 0.0065 and 0.014).
+SPATIAL_SPREAD = 1.5
+
+
+def spatial_batch(n, seed):
+    """A batch of ``n`` samples of SPATIAL_SHAPE with 16 channels and its
+    labels, made on the card from a seed: the same in every process."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand(n, *SPATIAL_SHAPE, 16, generator=gen, device="cuda")
+    return x.bfloat16(), torch.randint(0, 3, (n, *SPATIAL_SHAPE), generator=gen, device="cuda")
+
+
+def spatial_probe(spatial, model, x, y, group=None, size=1, train=True):
+    """One forward and backward of the train step without the update, in
+    train mode or (``train=False``) with the running statistics, under
+    spatial mode when ``size`` > 1 (the gradients then averaged over the
+    ranks, as the spatial step does); the running statistics are left as
+    they were.  Returns the logits, the loss and the gradients."""
+    from deepcam_tpu_torch.train.losses import FPW_1, FPW_2, class_weights, weighted_ce_loss
+    from deepcam_tpu_torch.train.trainer import average_gradients, running_stats
+
+    stats = [b.clone() for b in running_stats(model)]
+    model.train(train)
+    model.zero_grad(set_to_none=True)
+    mode = spatial.spatial_mode(group, size) if size > 1 else contextlib.nullcontext()
+    with mode:
+        logits = model(x)
+        loss = weighted_ce_loss(logits, y, list(class_weights()), FPW_1, FPW_2)
+        loss.backward()
+        # the loss of the whole images: the mean of the ranks' (equal) shards'
+        value = spatial.group_sum(loss.detach()).item() / size
+    if size > 1:
+        average_gradients(model)
+    torch._foreach_copy_(running_stats(model), stats)
+    grads = {k: p.grad.detach().float().clone() for k, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return logits.detach(), value, grads
+
+
+def spatial_child(job):
+    """A rank of the spatial group: the probe with every unit held to the
+    plain version, SPATIAL_STEPS timed AdamW steps of the spatial step
+    with the counters zeroed just before and read just after, the ranks'
+    states compared, and the spatial eval step over SPATIAL_EVAL_VALID's
+    samples.  Rank 0 leaves its logits rows, gradients and final state in
+    the job's directory; every rank its logits rows."""
+    from deepcam_tpu_torch.core import mesh
+    from deepcam_tpu_torch.models.deeplab import DeepLabv3plus
+    from deepcam_tpu_torch.ops import fused_sepconv as fs
+    from deepcam_tpu_torch.parallel import spatial
+    from deepcam_tpu_torch.train.losses import FPW_1, FPW_2, class_weights
+    from deepcam_tpu_torch.train.optim import build_optimizer
+    from deepcam_tpu_torch.train.trainer import create_train_state
+
+    rank = job["rank"]
+    torch.distributed.init_process_group(
+        "gloo", init_method="file://" + job["store"], rank=rank, world_size=SPATIAL_S,
+        timeout=datetime.timedelta(seconds=300))
+    out = {"rank": rank}
+    try:
+        dev = mesh.device_for("cuda:0")
+        groups = mesh.init_spatial_groups(SPATIAL_S)
+        out.update(backend=torch.distributed.get_backend(), world_size=mesh.get_size(),
+                   spatial_index=groups.index, data_size=groups.data_size, device=str(dev))
+        model = DeepLabv3plus(n_classes=3, dtype=torch.bfloat16, device=dev, seed=333)
+        state = create_train_state(model, build_optimizer(
+            "AdamW", model.parameters(), 1e-3, eps=1e-8, weight_decay=1e-2))
+        x, y = spatial_batch(SPATIAL_BATCH, 200)
+        h = SPATIAL_SHAPE[0] // SPATIAL_S
+        rows = slice(groups.index * h, (groups.index + 1) * h)
+        x, y = x[:, rows].contiguous(), y[:, rows].contiguous()
+        out["input"] = list(x.shape)
+
+        # the probe: every unit of this rank's step held to the plain version
+        probe = {}
+
+        def probe_step(st, xx, yy):
+            probe["logits"], probe["loss"], probe["grads"] = spatial_probe(
+                spatial, st.model, xx, yy, groups.group, groups.size)
+            return st, {"loss": torch.tensor(probe["loss"])}
+
+        _, _, worst, units = checked_unit_step(fs, probe_step, state, x, y, TRAIN_FORMS,
+                                               UNIT_DILATIONS)
+        out.update(units_worst_rel=worst, units=len(units["fwd"]),
+                   distinct_units=sorted({u[1:] for u in units["fwd"]}),
+                   probe_loss=probe["loss"])
+        torch.save(probe["logits"].cpu(), os.path.join(job["tmp"], f"logits{rank}.pt"))
+        if rank == 0:
+            torch.save(probe["grads"], os.path.join(job["tmp"], "grads0.pt"))
+        del probe
+        # the same probe in eval mode, with random running statistics (as
+        # the parity phase): no batch statistics couple the rows
+        frozen = DeepLabv3plus(n_classes=3, dtype=torch.bfloat16, device=dev, seed=333)
+        random_running_stats(frozen, 8)
+        logits, out["probe_loss_eval"], grads = spatial_probe(
+            spatial, frozen, x, y, groups.group, groups.size, train=False)
+        torch.save(logits.cpu(), os.path.join(job["tmp"], f"eval_logits{rank}.pt"))
+        if rank == 0:
+            torch.save(grads, os.path.join(job["tmp"], "eval_grads0.pt"))
+        del frozen, logits, grads
+
+        step_fn = spatial.make_train_step_spatial(list(class_weights()), fpw_1=FPW_1,
+                                                  fpw_2=FPW_2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fs.reset_launches()
+        steps = []
+        for _ in range(SPATIAL_STEPS):
+            torch.distributed.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, x, y)
+            m = {k: float(v) for k, v in metrics.items()}
+            steps.append({"metrics": m, "gloo_staged_step_ms": (time.perf_counter() - t0) * 1e3})
+        torch.cuda.synchronize()
+        out.update(steps=steps, launches=dict(fs.LAUNCHES), forms=measured_forms(fs),
+                   max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+        check_counts(f"spatial rank {rank}", out["launches"], out["forms"], SPATIAL_STEPS,
+                     TRAIN_FORMS, TRAIN_FORMS)
+        same = True
+        for t in ddp_flat(model):
+            lo, hi = t.clone(), t.clone()
+            torch.distributed.all_reduce(lo, op=torch.distributed.ReduceOp.MIN)
+            torch.distributed.all_reduce(hi, op=torch.distributed.ReduceOp.MAX)
+            same = same and torch.equal(lo, hi)
+        out["bit_identical"] = bool(same)
+        if rank == 0:
+            torch.save(model.state_dict(), os.path.join(job["tmp"], "state0.pt"))
+
+        xe, ye = spatial_batch(len(SPATIAL_EVAL_VALID), 201)
+        eval_fn = spatial.make_eval_step_spatial(list(class_weights()), fpw_1=FPW_1,
+                                                 fpw_2=FPW_2)
+        valid = torch.tensor(SPATIAL_EVAL_VALID, device=dev)
+        fs.reset_launches()
+        sums = eval_fn(state, xe[:, rows].contiguous(), ye[:, rows].contiguous(), valid)
+        out["eval"] = [float(t) for t in sums]
+        out["eval_launches"], out["eval_forms"] = dict(fs.LAUNCHES), measured_forms(fs)
+        check_counts(f"spatial eval rank {rank}", out["eval_launches"], out["eval_forms"], 1,
+                     EVAL_FORMS, {})
+    finally:
+        mesh.destroy_distributed()
+    return out
+
+
+def spatial_phase(fs):
+    """Spatial H-sharding on the card (module docstring, phase 12): the two
+    ranks, then the same model's unsharded probe and eval in this process,
+    after the ranks have left the card."""
+    from deepcam_tpu_torch.models.deeplab import DeepLabv3plus
+    from deepcam_tpu_torch.parallel import spatial
+    from deepcam_tpu_torch.train.losses import FPW_1, FPW_2, class_weights
+    from deepcam_tpu_torch.train.optim import build_optimizer
+    from deepcam_tpu_torch.train.trainer import create_train_state, make_eval_step
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="deepcam_spatial_") as tmp:
+        store = os.path.join(tmp, "gloo.store")
+        t0 = time.perf_counter()
+        ranks = run_children([{"kind": "spatial", "rank": r, "store": store, "tmp": tmp}
+                              for r in range(SPATIAL_S)], tmp)
+        wall = time.perf_counter() - t0
+        check(all(r["backend"] == "gloo" and r["world_size"] == SPATIAL_S and r["data_size"] == 1
+                  for r in ranks), f"spatial: {ranks}")
+        check(all(r["units"] == UNITS_PER_STEP for r in ranks), "spatial: units per rank")
+        for s0, s1 in zip(ranks[0]["steps"], ranks[1]["steps"]):
+            check(s0["metrics"] == s1["metrics"], f"spatial: the ranks' metrics differ {s0} {s1}")
+        check(all(r["bit_identical"] for r in ranks),
+              "spatial: the ranks' parameters or running statistics differ after "
+              f"{SPATIAL_STEPS} steps")
+        check(ranks[1]["eval"] == [0.0, 0.0, 0.0],
+              f"spatial eval: rank 1 must add zeros, got {ranks[1]['eval']}")
+        # the same model unsharded on the card: the probes at the global
+        # batch, and the eval of rank 0's trained state
+        x, y = spatial_batch(SPATIAL_BATCH, 200)
+        par = {}
+        for mode, prefix in (("train", ""), ("eval", "eval_")):
+            logits = torch.cat([torch.load(os.path.join(tmp, f"{prefix}logits{r}.pt"))
+                                for r in range(SPATIAL_S)], dim=1)
+            grads = torch.load(os.path.join(tmp, f"{prefix}grads0.pt"))
+            model = DeepLabv3plus(n_classes=3, dtype=torch.bfloat16, device="cuda", seed=333)
+            if mode == "eval":
+                random_running_stats(model, 8)
+            ref_logits, ref_loss, ref_grads = spatial_probe(spatial, model, x, y,
+                                                            train=mode == "train")
+
+            def errors(logits, loss, grads):
+                grad_norm = sorted(norm_err(grads[k], g) for k, g in ref_grads.items())
+                return {"logits": rel_err(logits, ref_logits),
+                        "loss": abs(loss - ref_loss) / abs(ref_loss),
+                        "grad_norm_median": grad_norm[len(grad_norm) // 2],
+                        "grad_norm_max": grad_norm[-1], "n_grads": len(grad_norm)}
+
+            spatial_loss = ranks[0]["probe_loss" if mode == "train" else "probe_loss_eval"]
+            par[mode] = {**errors(logits, spatial_loss, grads), "loss_unsharded": ref_loss,
+                         "loss_spatial": spatial_loss}
+            del logits, grads
+            # the yardstick: the unsharded probe with its inputs scaled by
+            # 1 + 2^-8 * N(0, 1) before their rounding to bf16
+            scale = torch.randn(x.shape, generator=torch.Generator(device="cuda").manual_seed(7),
+                                device="cuda")
+            nudged = spatial_probe(spatial, model, (x.float() * (1 + 2.0 ** -8 * scale))
+                                   .bfloat16(), y, train=mode == "train")
+            par[mode]["bf16_inputs_unsharded"] = errors(*nudged)
+            del scale, nudged, ref_logits, ref_grads, model
+        trained = torch.load(os.path.join(tmp, "state0.pt"))
+        model = DeepLabv3plus(n_classes=3, dtype=torch.bfloat16, device="cuda", seed=333)
+        model.load_state_dict(trained)
+        state = create_train_state(model, build_optimizer("AdamW", model.parameters(), 1e-3))
+        xe, ye = spatial_batch(len(SPATIAL_EVAL_VALID), 201)
+        want = [float(t) for t in make_eval_step(list(class_weights()), fpw_1=FPW_1,
+                                                 fpw_2=FPW_2)(
+            state, xe, ye, torch.tensor(SPATIAL_EVAL_VALID, device="cuda"))]
+        got = ranks[0]["eval"]
+        eval_errs = {"loss_sum": abs(got[1] - want[1]) / abs(want[1]),
+                     "iou_sum": abs(got[2] - want[2])}
+        del model, state, xe, ye, trained, x, y
+        torch.cuda.empty_cache()
+    emit({"phase": "spatial_errors", "vs_unsharded": par, "tolerance": PARITY_TOL,
+          "eval": {"spatial": got, "unsharded": want, "errors": eval_errs}})
+    train = par["train"]
+    for k, tol in PARITY_TOL.items():
+        if k == "loss":
+            limit = tol
+        else:
+            limit = SPATIAL_SPREAD * train["bf16_inputs_unsharded"][k]
+        check(train[k] <= limit, f"spatial vs unsharded (train mode): {k} {train[k]} > {limit}")
+        check(par["eval"][k] <= tol,
+              f"spatial vs unsharded (eval mode): {k} {par['eval'][k]} > {tol}")
+    check(got[0] == want[0] == sum(SPATIAL_EVAL_VALID), f"spatial eval count: {got}, {want}")
+    for k, tol in SPATIAL_EVAL_TOL.items():
+        check(eval_errs[k] <= tol, f"spatial eval vs unsharded: {k} {eval_errs[k]} > {tol}")
+    return {"wall_s": wall, "ranks": ranks, "vs_unsharded": par, "tolerance": PARITY_TOL,
+            "train_spread_factor": SPATIAL_SPREAD,
+            "eval": {"spatial": got, "unsharded": want, "errors": eval_errs,
+                     "tolerance": SPATIAL_EVAL_TOL},
+            "launches_per_rank": ranks[0]["launches"],
+            "note": "gloo stages CUDA tensors through the host: the step time is the "
+                    "two ranks sharing one card, not a scaling number"}
 
 
 def profile_run(fs, cli, out_dir, tag, extra):
@@ -2061,7 +2354,12 @@ def main():
     ddp = ddp_phase(fs, cli)
     emit({"phase": "ddp", **ddp, "device": kind, "nvidia_smi": smi})
 
-    # 12. each launch of both kernels on its own, at the headline shapes, and
+    # 12. spatial H-sharding: one group of two gloo ranks on the one card
+    # against the same model unsharded in this process
+    sp = spatial_phase(fs)
+    emit({"phase": "spatial", **sp, "device": kind, "nvidia_smi": smi})
+
+    # 13. each launch of both kernels on its own, at the headline shapes, and
     # one profiled training step
     split_phase(fs, rows, splits)
     del splits
@@ -2075,7 +2373,7 @@ def main():
     del model, opt, x, y
     torch.cuda.empty_cache()
 
-    # 13. the profiling entry point at full width, last: it runs the
+    # 14. the profiling entry point at full width, last: it runs the
     # profiler too
     with tempfile.TemporaryDirectory(prefix="deepcam_profile_") as out_dir:
         profile_phase(fs, smi, out_dir)
@@ -2104,6 +2402,7 @@ def main():
             "launches_by_path": {"slice": launches[kname], "eval": eval_launches[kname],
                                  "os8": os8["train"]["launches"][kname],
                                  "os8_eval": os8["eval"]["launches"][kname],
+                                 "spatial_per_rank": sp["launches_per_rank"][kname],
                                  **{tag: run["launches"][kname]
                                     for tag, run in cli["runs"].items()}}})
     kernels.append(probe)

@@ -15,14 +15,22 @@ datasets, the global batch is ``--local_batch_size`` times the world size,
 validation counts every sample once over uneven shards, and rank 0 alone
 writes the MLPerf log and the checkpoints.
 
+``--spatial S`` (``parallel/spatial.py``) splits the world into groups of S
+consecutive ranks, S dividing the ranks on each host; a group plays one
+data-parallel rank.  Its ranks read the same samples (the datasets are
+sharded over the W/S groups), each keeps H/S rows of every sample before
+the copy to the device, and ``--local_batch_size`` is per group, as in the
+JAX CLI.  BN statistics sync over the group, gradients average over all
+ranks, and validation counts each sample once per group.
+
 ``main(pargs)`` builds the HDF5 datasets and calls ``train_loop(pargs,
 train_set, validation_set)``, which takes any pair of ``CamDataset``s (for
 example ``MemoryCamDataset``).
 
-Not ported, because they are TPU layout devices or TPU-only settings: the
-space-to-depth host feed, spatial partitioning (``--spatial`` > 1,
-``--spatial_impl gspmd``), rematerialization (``--remat``), the orbax
-checkpoint format and ``--wireup_method jax``.  Each of these flags raises.
+Not ported: the space-to-depth host feed (a TPU layout device), the orbax
+checkpoint format and ``--wireup_method jax`` (TPU settings), and, queued
+as later slices (ROADMAP.md), ``--spatial_impl gspmd`` and ``--remat``.
+Each of these flags raises.
 
 With nonzero visualization frequencies rank 0 plots one sample's eval-mode
 prediction against its label into ``<output_dir>/plots`` (``obs/visualizer.py``,
@@ -102,7 +110,7 @@ def build_parser() -> ap.ArgumentParser:
     AP.add_argument("--resume_logging", action="store_true")
     AP.add_argument("--seed", type=int, default=333)
     AP.add_argument("--remat", action="store_true",
-                    help="TPU-only (rematerialization of the middle flow): raises")
+                    help="rematerialization of the middle flow: not ported yet, raises")
     AP.add_argument("--eval_local_batch_size", type=int, default=32,
                     help="Per-device validation batch (semantics stay per-sample "
                          "via the validity mask; the reference hardcodes 1)")
@@ -114,11 +122,13 @@ def build_parser() -> ap.ArgumentParser:
                     help="torch = one torch.save file in the reference's schema; "
                          "orbax is a TPU format and raises")
     AP.add_argument("--spatial", type=int, default=1,
-                    help="Spatial partitioning factor; only 1 (pure data "
-                         "parallel) is ported, more raises")
+                    help="Spatial partitioning factor: each sample's H split over "
+                         "groups of this many consecutive ranks (1: pure data "
+                         "parallel); it must divide the ranks on each host")
     AP.add_argument("--spatial_impl", type=str, default="shard_map",
                     choices=["shard_map", "gspmd"],
-                    help="TPU spatial implementation; gspmd raises")
+                    help="shard_map: the halo-strip path; gspmd (sync-BN over the "
+                         "world) is not ported yet and raises")
     AP.add_argument("--device", type=str, default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
     return AP
@@ -127,9 +137,9 @@ def build_parser() -> ap.ArgumentParser:
 def check_supported(pargs) -> None:
     """Raises for a flag that asks for something the port does not do."""
     refused = {
-        "--spatial > 1 (spatial partitioning is a TPU device)": pargs.spatial > 1,
-        "--spatial_impl gspmd (a TPU partitioner path)": pargs.spatial_impl == "gspmd",
-        "--remat (a TPU memory device)": pargs.remat,
+        "--spatial_impl gspmd (not ported yet: ROADMAP.md, Queue 1 item [15])":
+            pargs.spatial_impl == "gspmd",
+        "--remat (not ported yet: ROADMAP.md, Queue 1 item [16])": pargs.remat,
         "--checkpoint_format orbax (a TPU format)": pargs.checkpoint_format == "orbax",
         "--wireup_method jax (the TPU wireup)": pargs.wireup_method == "jax",
     }
@@ -163,16 +173,17 @@ def compute_dtype(amp_opt_level: str) -> torch.dtype:
 
 def make_datasets(pargs, dataset_cls=None):
     """(train_set, validation_set) under ``--data_dir_prefix``, as the
-    CLI shards and normalizes them: this rank's shard of the process group
-    (all of it without one).  ``dataset_cls`` defaults to the HDF5
-    ``CamDataset``."""
-    from ..core.mesh import get_rank, get_size
+    CLI shards and normalizes them: this rank's data group's shard (all of
+    it without a process group), and this rank's rows of each sample in a
+    spatial group.  ``dataset_cls`` defaults to the HDF5 ``CamDataset``."""
+    from ..core.mesh import data_index, data_size, spatial_index, spatial_size
     from ..data.dataset import CamDataset
 
     cls = dataset_cls or CamDataset
     root = pargs.data_dir_prefix
     statsfile = os.path.join(root, "stats.h5")
-    common = dict(channels=pargs.channels, comm_size=get_size(), comm_rank=get_rank(),
+    common = dict(channels=pargs.channels, comm_size=data_size(), comm_rank=data_index(),
+                  h_shard=(spatial_index(), spatial_size()),
                   bf16_out=compute_dtype(pargs.amp_opt_level) == torch.bfloat16)
     train_set = cls(os.path.join(root, "train"), statsfile,
                     allow_uneven_distribution=False, shuffle=True, **common)
@@ -183,15 +194,19 @@ def make_datasets(pargs, dataset_cls=None):
 
 
 def main(pargs) -> dict:
-    """Joins the process group (``--wireup_method``), builds this rank's
-    datasets and trains; leaves the group if it joined it."""
-    from ..core.mesh import destroy_distributed, device_for, init_distributed
+    """Joins the process group (``--wireup_method``), splits it into the
+    spatial groups, builds this rank's datasets and trains; leaves the
+    group if it joined it, and forgets the spatial groups."""
+    from ..core.mesh import (destroy_distributed, device_for, forget_spatial_groups,
+                             init_distributed, init_spatial_groups)
 
     check_supported(pargs)
     created = init_distributed(pargs.wireup_method, device_for(pargs.device))
     try:
+        init_spatial_groups(pargs.spatial)
         return train_loop(pargs, *make_datasets(pargs)).metrics
     finally:
+        forget_spatial_groups()
         if created:
             destroy_distributed()
 
@@ -260,27 +275,37 @@ def validate(state, eval_step, loader, device, budget=None, on_first_batch=None)
 
 def train_loop(pargs, train_set, validation_set) -> LoopResult:
     """The training run of ``cli/train.py:main`` over the given datasets,
-    which are this rank's shards of the process group in place (if any)."""
+    which are this rank's shards of the process group in place (if any),
+    split into spatial groups of ``--spatial`` ranks
+    (``core/mesh.py:init_spatial_groups``)."""
     from ..ckpt.checkpoint import (AsyncCheckpointWriter, checkpoint_path,
                                    restore_checkpoint, save_checkpoint)
-    from ..core.mesh import device_for, get_rank, get_size
+    from ..core.mesh import device_for, get_rank, spatial_groups
     from ..data.pipeline import DataLoader, prefetch_to_device
     from ..models.deeplab import DeepLabv3plus
     from ..obs.mlperf_log import MLPerfLogger
     from ..obs.wandb_utils import WandbLogger
     from ..ops.classify import argmax_channels
+    from ..ops.native import as_bf16_tensor
     from ..train.losses import FPW_1, FPW_2, class_weights
     from ..train.optim import build_optimizer
     from ..train.schedule import get_lr_schedule
+    from ..parallel.spatial import make_eval_step_spatial, make_train_step_spatial
     from ..train.trainer import create_train_state, make_eval_step, make_train_step
 
     check_supported(pargs)
     device = device_for(pargs.device)
-    n_replicas, rank = get_size(), get_rank()
+    groups, rank = spatial_groups(), get_rank()
+    if groups.size != pargs.spatial:
+        raise ValueError(f"--spatial {pargs.spatial} in spatial groups of {groups.size}: "
+                         "call core.mesh.init_spatial_groups first")
+    n_replicas = groups.data_size  # the data-parallel width: one per spatial group
+    want = (n_replicas, groups.data_index, (groups.index, groups.size))
     for ds in (train_set, validation_set):
-        if (ds.comm_size, ds.comm_rank) != (n_replicas, rank):
-            raise ValueError(f"a dataset sharded as rank {ds.comm_rank} of {ds.comm_size} "
-                             f"in a process group of {n_replicas} at rank {rank}")
+        if (ds.comm_size, ds.comm_rank, ds.h_shard) != want:
+            raise ValueError(f"a dataset sharded as {ds.comm_rank} of {ds.comm_size} with rows "
+                             f"{ds.h_shard}, at data group {want[1]} of {n_replicas} and "
+                             f"rows {want[2]}")
 
     pargs.logging_frequency = max(pargs.logging_frequency, 1)
     log_file = os.path.normpath(os.path.join(pargs.output_dir, "logs", pargs.run_tag + ".log"))
@@ -357,8 +382,10 @@ def train_loop(pargs, train_set, validation_set) -> LoopResult:
             state, _ = restore_checkpoint(pargs.checkpoint, state)
 
         weights = list(class_weights(pargs.loss_weight_pow))
-        train_step = make_train_step(weights, fpw_1=FPW_1, fpw_2=FPW_2, with_iou=True)
-        eval_step = make_eval_step(weights, fpw_1=FPW_1, fpw_2=FPW_2)
+        make_train, make_eval = ((make_train_step_spatial, make_eval_step_spatial)
+                                 if groups.size > 1 else (make_train_step, make_eval_step))
+        train_step = make_train(weights, fpw_1=FPW_1, fpw_2=FPW_2, with_iou=True)
+        eval_step = make_eval(weights, fpw_1=FPW_1, fpw_2=FPW_2)
         ckpt_writer = AsyncCheckpointWriter() if pargs.async_checkpoint else None
         # the wandb.watch analogue: histograms at 10x the scalars' cadence
         watch_every = 10 * pargs.logging_frequency
@@ -368,12 +395,18 @@ def train_loop(pargs, train_set, validation_set) -> LoopResult:
 
             viz = CamVisualizer()
 
-        def visualize_sample(data, label, names, step, prefix):
+        def visualize_sample(data, label, names, step, prefix, dataset):
             """One random real sample of the batch, predicted in eval mode at
             batch 1, plotted against its label; the plot goes to wandb as
-            ``<prefix>_examples``.  The next train step sets train mode
+            ``<prefix>_examples``.  In a spatial group the batch holds this
+            rank's rows, so the sample is read whole from ``dataset`` and
+            predicted unsharded.  The next train step sets train mode
             again."""
             idx = int(np.random.randint(0, len(names)))
+            if groups.size > 1:
+                d, lb = dataset.full_sample(names[idx])
+                d = as_bf16_tensor(d) if d.dtype == np.uint16 else torch.from_numpy(d)
+                data, label, idx = d[None].to(device), torch.from_numpy(lb)[None], 0
             state.model.eval()
             with torch.no_grad():
                 pred = argmax_channels(state.model(data[idx:idx + 1]))
@@ -407,7 +440,8 @@ def train_loop(pargs, train_set, validation_set) -> LoopResult:
                 budget = pargs.max_validation_steps + 1
             plot = None
             if viz is not None and pargs.validation_visualization_frequency > 0:
-                plot = functools.partial(visualize_sample, step=step, prefix="validation")
+                plot = functools.partial(visualize_sample, step=step, prefix="validation",
+                                         dataset=validation_set)
             count, loss_sum, iou_sum = validate(state, eval_step, validation_loader, device,
                                                 budget, plot)
             loss_avg_val = loss_sum / max(count, 1.0)
@@ -450,7 +484,7 @@ def train_loop(pargs, train_set, validation_set) -> LoopResult:
                 current_lr = float(lr_sched(step - 1))
                 if (viz is not None and pargs.training_visualization_frequency > 0
                         and step % pargs.training_visualization_frequency == 0):
-                    visualize_sample(data, label, names, step, "training")
+                    visualize_sample(data, label, names, step, "training", train_set)
 
                 if step % pargs.logging_frequency == 0:
                     loss_avg = float(metrics["loss"])

@@ -11,7 +11,11 @@
   shift)`` with ``shift = minval[channels]`` and ``scale = 1/(maxval -
   minval)``, through the native routine (``ops/native``);
 * samples stay HWC (channels last), the on-disk layout and the model's
-  NHWC input.
+  NHWC input;
+* spatial sharding (``h_shard=(index, count)``): each sample keeps only
+  rows ``[index·H/count, (index+1)·H/count)`` of its data and label, cut
+  before the normalization, so a rank of a spatial group reads and copies
+  its own rows (``full_sample`` gives a whole one).
 
 All access to storage sits in three methods: ``_list`` (the sample names),
 ``_read_stats`` (minval, maxval) and ``_read`` (one sample's data and
@@ -45,7 +49,8 @@ class CamDataset:
 
     def __init__(self, source: str, statsfile: str, channels: Sequence[int],
                  allow_uneven_distribution: bool = False, shuffle: bool = False,
-                 comm_size: int = 1, comm_rank: int = 0, bf16_out: bool = False):
+                 comm_size: int = 1, comm_rank: int = 0, bf16_out: bool = False,
+                 h_shard: Tuple[int, int] = (0, 1)):
         self.source = source
         self.statsfile = statsfile
         self.channels = list(channels)
@@ -60,8 +65,15 @@ class CamDataset:
         self._init_reader()
 
         data, label = self._read(self.files[0])
-        self.data_shape = data.shape[:-1] + (len(self.channels),)
-        self.label_shape = label.shape
+        index, count = h_shard
+        h = data.shape[0]
+        if h % count or not 0 <= index < count:
+            raise ValueError(f"h_shard {h_shard}: H = {h} does not split into {count} "
+                             f"equal shards, or the index is out of range")
+        self.h_shard = tuple(h_shard)
+        self.rows = slice(index * h // count, (index + 1) * h // count)
+        self.data_shape = (h // count,) + data.shape[1:-1] + (len(self.channels),)
+        self.label_shape = (h // count,) + label.shape[1:]
 
         minval, maxval = self._read_stats(statsfile)
         shift = minval[self.channels]
@@ -112,13 +124,22 @@ class CamDataset:
         return self.data_shape, self.label_shape
 
     def __getitem__(self, idx: int) -> Tuple[np.ndarray, np.ndarray, str]:
-        """(data[H, W, C] normalized, label[H, W], filename)."""
+        """(data[H, W, C] normalized, label[H, W], filename), this shard's
+        rows of them."""
         filename = self.files[idx]
+        return self._sample(filename, self.rows) + (filename,)
+
+    def full_sample(self, filename: str) -> Tuple[np.ndarray, np.ndarray]:
+        """(data, label) of the sample ``filename`` with all its rows."""
+        return self._sample(filename, slice(None))
+
+    def _sample(self, filename: str, rows: slice):
         data, label = self._read(filename)
+        data, label = data[rows], label[rows]
         if self.channels != list(range(data.shape[-1])):
             data = data[..., self.channels]
         normalize = native.normalize_hwc_bf16 if self.bf16_out else native.normalize_hwc
-        return normalize(data, self.data_shift, self.data_scale), label, filename
+        return normalize(data, self.data_shift, self.data_scale), label
 
 
 class MemoryCamDataset(CamDataset):

@@ -10,11 +10,14 @@ JAX model.  Inside, activations are NCHW in ``torch.channels_last`` memory
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn as nn
 
 from .. import resolve_device
 from ..ops.interpolate import resize_bilinear_align_corners
+from ..parallel import spatial
 from .layers import (
     BatchNorm2d,
     Conv2d,
@@ -147,20 +150,47 @@ class DeepLabv3plus(nn.Module):
         self.upsample = DECODERS[decoder](256, 48, n_classes, **kw)
         self.to(device)
 
+    def aspp(self, feats: torch.Tensor) -> torch.Tensor:
+        """The ASPP region: the four atrous branches and the GAP branch on
+        ``feats``, merged by ``conv1`` and ``bn1``.  Under spatial mode the
+        rates (up to 18 at output stride 16) exceed the shard, so the region
+        runs on the gathered full-H features, the same on every rank of the
+        group, with plain BN statistics, and returns this rank's rows."""
+        sharded = spatial.spatial_active()
+        if sharded:
+            hs = feats.shape[2]
+            feats = spatial.gather_rows(feats, dim=2).contiguous(
+                memory_format=torch.channels_last)
+        with spatial.replicated_region() if sharded else contextlib.nullcontext():
+            branches = [getattr(self, f"aspp{i + 1}")(feats)
+                        for i in range(len(self.rates))]
+            # global-average-pool branch: fp32 mean → 1×1 conv → BN → ReLU →
+            # align-corners upsample from 1×1, which is a broadcast
+            gap = feats.float().mean(dim=(2, 3), keepdim=True).to(self.dtype)
+            gap = self.gap_bn(self.gap_conv(gap), relu=True)
+            branches.append(resize_bilinear_align_corners(gap, feats.shape[2:]))
+            x = torch.cat(branches, dim=1).contiguous(memory_format=torch.channels_last)
+            x = self.bn1(self.conv1(x), relu=True)
+        if sharded:
+            x = spatial.my_rows(x, hs, dim=2).contiguous(memory_format=torch.channels_last)
+        return x
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (N, H, W, C) NHWC → fp32 logits (N, H, W, n_classes) NHWC."""
+        """x: (N, H, W, C) NHWC → fp32 logits (N, H, W, n_classes) NHWC.
+        Under spatial mode x holds this rank's H/S rows and so do the
+        logits; the deconv decoder only."""
         size = x.shape[1:3]
+        if spatial.spatial_active():
+            if self.decoder != "deconv":
+                raise ValueError("spatial mode takes the deconv decoder only: the "
+                                 "interpolation decoder's resize mixes all rows")
+            if size[0] % 16:  # the deconv decoder runs at output stride 16
+                raise ValueError(
+                    f"an H-shard of {size[0]} rows: each of the four stride-2 levels needs "
+                    f"even shards, so the input's H must be divisible by 16·S")
         x = x.permute(0, 3, 1, 2).to(self.dtype).contiguous(
             memory_format=torch.channels_last)
         feats, low_level = self.xception(x)
-        branches = [getattr(self, f"aspp{i + 1}")(feats)
-                    for i in range(len(self.rates))]
-        # global-average-pool branch: fp32 mean → 1×1 conv → BN → ReLU →
-        # align-corners upsample from 1×1, which is a broadcast
-        gap = feats.float().mean(dim=(2, 3), keepdim=True).to(self.dtype)
-        gap = self.gap_bn(self.gap_conv(gap), relu=True)
-        branches.append(resize_bilinear_align_corners(gap, feats.shape[2:]))
-        x = torch.cat(branches, dim=1).contiguous(memory_format=torch.channels_last)
-        x = self.bn1(self.conv1(x), relu=True)
+        x = self.aspp(feats)
         low = self.bn2(self.conv2(low_level), relu=True)
         return self.upsample(x, low, size).float().permute(0, 2, 3, 1)

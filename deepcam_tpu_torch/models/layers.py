@@ -35,6 +35,7 @@ from ..ops.fused_sepconv import (
     fused_sepconv_boundary_stats,
     fused_sepconv_stats,
 )
+from ..parallel import spatial
 
 
 # ---------------------------------------------------------------------------
@@ -94,9 +95,12 @@ class Conv2d(nn.Module):
             self.bias = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(x.to(self.dtype), self.weight.to(self.dtype),
-                     stride=self.stride, padding=self.padding,
+        x, w = x.to(self.dtype), self.weight.to(self.dtype)
+        y = F.conv2d(x, w, stride=self.stride, padding=self.padding,
                      dilation=self.dilation, groups=self.groups)
+        if (spatial.spatial_active() and w.shape[2:] == (3, 3) and self.groups == 1
+                and self.padding == self.dilation):
+            y = spatial.conv3x3_strip_fix(y, x, w, self.stride, self.dilation)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)[:, None, None]
         return y
@@ -115,8 +119,11 @@ class ConvTranspose2d(nn.Module):
         torch_default_conv_kernel_init(self.weight, gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose2d(x.to(self.dtype), self.weight.to(self.dtype),
-                                  stride=2, padding=1, output_padding=1)
+        x, w = x.to(self.dtype), self.weight.to(self.dtype)
+        y = F.conv_transpose2d(x, w, stride=2, padding=1, output_padding=1)
+        if spatial.spatial_active():
+            y = spatial.deconv_k3s2_strip_fix(y, x, w)
+        return y
 
 
 # ---------------------------------------------------------------------------
@@ -199,6 +206,15 @@ class SeparableConv2dSame(nn.Module):
         block's skip path."""
         dw = self.depthwise.weight.to(self.dtype)  # (C, 1, 3, 3)
         pw = self.pointwise.weight.to(self.dtype)  # (F, C, 1, 1)
+        dwk, pwk = dw[:, 0].permute(1, 2, 0), pw[:, :, 0, 0].t()
+        sharded, d = spatial.spatial_active(), self.dilation
+
+        def nhwc(t):
+            return t.to(self.dtype).permute(0, 2, 3, 1)
+
+        def nchw(t):
+            return t.permute(0, 3, 1, 2)
+
         if self.stride != 1:
             if boundary is not None:
                 raise ValueError("the boundary form is stride-1 only")
@@ -208,42 +224,49 @@ class SeparableConv2dSame(nn.Module):
                 x = x * a.to(self.dtype)[:, None, None] + b.to(self.dtype)[:, None, None]
             if self.pre_relu:
                 x = torch.relu(x)
-            pad, _ = fixed_padding(3, self.dilation)  # symmetric for k=3
-            x = F.conv2d(x, dw, stride=self.stride, padding=pad,
-                         dilation=self.dilation, groups=x.shape[1])
-            y = F.conv2d(x, pw)
+            pad, _ = fixed_padding(3, d)  # symmetric for k=3
+            y = F.conv2d(F.conv2d(x, dw, stride=self.stride, padding=pad, dilation=d,
+                                  groups=x.shape[1]), pw)
+            if sharded:
+                if self.stride != 2 or d != 1:
+                    raise ValueError("spatial mode takes stride-2 tails at dilation 1")
+                spatial.check_shard(x.shape[2], stride=2, where="stride-2 sepconv")
+                y = nchw(spatial.dw_s2_strip_fix(nhwc(y), nhwc(x[:, :, -1:]), dwk, pwk))
             return (y, None) if emit_stats else y
 
-        def nhwc(t):
-            return t.to(self.dtype).permute(0, 2, 3, 1)
-
-        def nchw(t):
-            return t.permute(0, 3, 1, 2)
-
-        dwk, pwk = dw[:, 0].permute(1, 2, 0), pw[:, :, 0, 0].t()
         if boundary is not None:
             if self.pre_relu or bn_fold is not None:
                 raise ValueError("the boundary form applies its own ReLU and affine")
             (ba, bb), skip = boundary
-            args = (nhwc(x), ba.to(self.dtype), bb.to(self.dtype), nhwc(skip), dwk, pwk,
-                    self.dilation)
+            args = (nhwc(x), ba.to(self.dtype), bb.to(self.dtype), nhwc(skip), dwk, pwk, d)
+            stats = None
             if emit_stats:
                 y, r, s1, s2 = fused_sepconv_boundary_stats(*args)
-                return nchw(y), (s1, s2), nchw(r)
-            y, r = fused_sepconv_boundary(*args)
-            return nchw(y), None, nchw(r)
+                stats = (s1, s2)
+            else:
+                y, r = fused_sepconv_boundary(*args)
+            if sharded:  # the strips read the emitted residual stream's edge rows
+                y, stats = spatial.sepconv_strip_fix(y, r[:, :d], r[:, -d:], dwk, pwk, d, stats)
+            return nchw(y), stats, nchw(r)
+        xh = nhwc(x)
         if bn_fold is not None:
             a, b = bn_fold
+            a, b = a.to(self.dtype), b.to(self.dtype)
             fn = fused_sepconv_affine_stats if emit_stats else fused_sepconv_affine
-            out = fn(nhwc(x), a.to(self.dtype), b.to(self.dtype), dwk, pwk,
-                     self.pre_relu, self.dilation)
+            out = fn(xh, a, b, dwk, pwk, self.pre_relu, d)
         else:
             fn = fused_sepconv_stats if emit_stats else fused_sepconv
-            out = fn(nhwc(x), dwk, pwk, self.pre_relu, self.dilation)
-        if emit_stats:
-            y, s1, s2 = out
-            return nchw(y), (s1, s2)
-        return nchw(out)
+            out = fn(xh, dwk, pwk, self.pre_relu, d)
+        y, stats = (out[0], tuple(out[1:])) if emit_stats else (out, None)
+        if sharded:
+            def pre(t):  # the unit's prologue on edge rows, rounded as the kernel's
+                if bn_fold is not None:
+                    t = t * a + b
+                return torch.relu(t) if self.pre_relu else t
+
+            y, stats = spatial.sepconv_strip_fix(y, pre(xh[:, :d]), pre(xh[:, -d:]), dwk, pwk,
+                                                 d, stats)
+        return (nchw(y), stats) if emit_stats else nchw(y)
 
 
 # ---------------------------------------------------------------------------
@@ -255,10 +278,11 @@ class BatchNorm2d(nn.Module):
 
     * Train mode: fp32 batch statistics in one pass, var = max(E[x²] −
       E[x]², 0): from ``stats=(Σx, Σx²)`` when the producing kernel emitted
-      them (no pass over x), else reduced here.  The running statistics are
-      updated IN PLACE (momentum 0.1, torch convention, unbiased running
-      variance) — the JAX module returns them as a new ``batch_stats`` tree
-      instead.
+      them (no pass over x), else reduced here.  Under spatial mode (E[x],
+      E[x²]) are averaged over the spatial group and the count multiplied
+      by its size.  The running statistics are updated IN PLACE (momentum
+      0.1, torch convention, unbiased running variance) — the JAX module
+      returns them as a new ``batch_stats`` tree instead.
     * Eval mode: the running statistics.
     * The apply is ``x*a + b`` in ``dtype`` with a = γ/σ and b = β − μ·a
       computed in fp32 — written out, because ``F.batch_norm`` rounds at
@@ -287,6 +311,9 @@ class BatchNorm2d(nn.Module):
                 x32 = x.float()
                 mean = x32.mean(dim=(0, 2, 3))
                 ex2 = (x32 * x32).mean(dim=(0, 2, 3))
+            if spatial.spatial_active():  # the group's statistics, one reference rank's
+                mean, ex2 = spatial.group_mean(torch.stack([mean, ex2])).unbind(0)
+                n = n * spatial.spatial_size()
             var = torch.clamp_min(ex2 - mean * mean, 0.0)
             with torch.no_grad():
                 m = self.momentum

@@ -92,6 +92,16 @@ def average_running_stats(model: torch.nn.Module) -> None:
     torch._foreach_copy_(stats, list(flat.split([b.numel() for b in stats])))
 
 
+def average_gradients(model: torch.nn.Module) -> None:
+    """Each parameter's gradient replaced by its mean over ranks, through
+    one all-reduce of all of them flattened (the spatial step's, which
+    runs without DDP)."""
+    grads = [p.grad for p in model.parameters()]
+    flat = allreduce_mean_(torch.cat([g.reshape(-1) for g in grads]))
+    torch._foreach_copy_(grads, [f.view_as(g) for f, g in
+                                 zip(flat.split([g.numel() for g in grads]), grads)])
+
+
 def make_train_step(class_weights: Sequence[float], fpw_1: float = 0.0,
                     fpw_2: float = 0.0, with_iou: bool = True):
     """Returns ``step_fn(state, x, y) -> (state, metrics)``.

@@ -93,11 +93,18 @@ def test_loss_weight_pow_matches_jax(pow_):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--spatial", "2"], ["--spatial_impl", "gspmd"], ["--remat"],
+    ["--spatial", "2", "--spatial_impl", "gspmd"], ["--spatial_impl", "gspmd"], ["--remat"],
     ["--checkpoint_format", "orbax"], ["--wireup_method", "jax"]])
 def test_refused_flags_raise(tmp_path, extra):
     with pytest.raises(NotImplementedError, match="does not take"):
         main(_args(str(tmp_path / "none"), str(tmp_path / "o"), "r", *extra))
+
+
+def test_spatial_needs_as_many_ranks(tmp_path):
+    """``--spatial 2`` is taken, but one process cannot hold a group of 2
+    ranks: it raises before reading any data."""
+    with pytest.raises(ValueError, match="does not divide the 1 ranks"):
+        main(_args(str(tmp_path / "none"), str(tmp_path / "o"), "r", "--spatial", "2"))
 
 
 @pytest.mark.parametrize("extra", [

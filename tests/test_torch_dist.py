@@ -15,15 +15,11 @@ with torch capped at 2 threads.
 * The wireup: when ``init_distributed`` initializes, and when it raises.
 """
 
-import atexit
-import fcntl
 import functools
 import json
 import os
 import pickle
 import socket
-import subprocess
-import sys
 import time
 from datetime import timedelta
 from pathlib import Path
@@ -46,6 +42,7 @@ from deepcam_tpu_torch.train.trainer import (create_train_state, make_eval_step,
                                              make_train_step, running_stats)
 from tests.torch_port_ref import flatten, release_memory  # noqa: F401  (autouse)
 from tests.torch_port_ref import few_torch_threads  # noqa: F401
+from tests.torch_port_ref import shared_once, spawn_ranks
 
 pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
@@ -172,58 +169,15 @@ def rank_main(job: str) -> None:
 
 def _spawn(tmp, kind, **kw):
     """Runs ``kind`` on WORLD rank processes; returns their results."""
-    tmp.mkdir(parents=True, exist_ok=True)
-    env = {k: v for k, v in os.environ.items() if k not in mesh.TORCHRUN_VARS}
-    env["OMP_NUM_THREADS"] = "2"
-    procs = []
-    for rank in range(WORLD):
-        job = dict(kind=kind, rank=rank, store=str(tmp / f"{kind}.store"),
-                   result=str(tmp / f"{kind}{rank}.pkl"), **kw)
-        log = open(tmp / f"{kind}{rank}.log", "w")
-        code = f"from tests.test_torch_dist import rank_main; rank_main({json.dumps(job)!r})"
-        procs.append((subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=env,
-                                       stdout=log, stderr=subprocess.STDOUT), log, job))
-    deadline = time.monotonic() + 600
-    try:
-        for proc, _, _ in procs:
-            proc.wait(timeout=max(deadline - time.monotonic(), 1))
-    finally:
-        for proc, log, _ in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            log.close()
-    for rank, (proc, _, _) in enumerate(procs):
-        assert proc.returncode == 0, (tmp / f"{kind}{rank}.log").read_text()[-4000:]
-    results = []
-    for _, _, job in procs:
-        with open(job["result"], "rb") as f:
-            results.append(pickle.load(f))
-        os.remove(job["result"])
-    return results
+    return spawn_ranks(tmp, "tests.test_torch_dist", kind, WORLD, **kw)
 
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    """The two ranks' results, computed once per test run: the first test
-    worker to ask spawns the ranks and leaves their results in the run's
-    shared tmp directory, under a file lock; the others read them.  Each
-    worker removes the file when it exits (a later reader would spawn
-    again)."""
-    base = tmp_path_factory.getbasetemp()
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        base = base.parent  # shared by the run's workers
-    cache = base / "torch_dist_ranks.pkl"
-    with open(base / "torch_dist_ranks.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if not cache.exists():
-            result = _spawn(tmp_path_factory.mktemp("ranks"), "steps")
-            with open(cache, "wb") as f:
-                pickle.dump(result, f, protocol=pickle.HIGHEST_PROTOCOL)
-        with open(cache, "rb") as f:
-            result = pickle.load(f)
-    atexit.register(cache.unlink, missing_ok=True)  # 230 MB: tmp outlives the run
-    return result
+    """The two ranks' results, computed once per test run and shared by
+    the run's workers (``shared_once``)."""
+    return shared_once(tmp_path_factory, "torch_dist_ranks",
+                       lambda: _spawn(tmp_path_factory.mktemp("ranks"), "steps"))
 
 
 # ---------------------------------------------------------------------------

@@ -83,9 +83,20 @@ OS8_UNITS = [
 ]
 # ragged shapes: C, F off multiples of 16 or 64, P off a multiple of 64
 RAGGED_UNITS = [(1, 9, 13, 24, 40, 1), (1, 7, 11, 728, 88, 1), (2, 5, 9, 40, 728, 2)]
+# the H-shards of spatial sharding (parallel/spatial.py) at batch 2: each
+# train unit on H/2 rows (S=2) and on H/4 (S=4), where the middle and exit
+# flows run at 12 x 72, off the forward's 8 x 8 tile and the backward's
+# 8 x 18 one
+SPATIAL_UNITS = [(2, h // s, w, c, f, dil) for s in (2, 4)
+                 for _, h, w, c, f, dil in TRAIN_UNITS]
+# the shard shapes held on the card: the entry, middle, block20 and exit
+# units at S=2 and S=4
+SPATIAL_CARD_UNITS = [u for u in SPATIAL_UNITS if u[3:5] in
+                      ((64, 128), (728, 728), (1024, 1024), (1536, 2048))]
 
 
-@pytest.mark.parametrize("n,h,w,c,f,dil", TRAIN_UNITS + OS8_UNITS + RAGGED_UNITS)
+@pytest.mark.parametrize("n,h,w,c,f,dil",
+                         TRAIN_UNITS + OS8_UNITS + RAGGED_UNITS + SPATIAL_UNITS)
 @pytest.mark.parametrize("sms", [132, 114])  # H100 SXM, H100 PCIe
 def test_fwd_plan_fits(n, h, w, c, f, dil, sms):
     """The forward's plan: the resident d tile, the halo buffer (staged)
@@ -138,8 +149,8 @@ def test_fwd_plan_at_the_train_shapes():
     assert fs.fwd_plan(4, 48, 72, 728, 728, 1, 132).waves == pytest.approx(216 / 132)
 
 
-@pytest.mark.parametrize("n,h,w,c,f,dil",
-                         TRAIN_UNITS + OS8_UNITS + RAGGED_UNITS + [(2, 4, 6, 1024, 1536, 1)])
+@pytest.mark.parametrize("n,h,w,c,f,dil", TRAIN_UNITS + OS8_UNITS + RAGGED_UNITS
+                         + [(2, 4, 6, 1024, 1536, 1)] + SPATIAL_UNITS)
 @pytest.mark.parametrize("fold", [False, True])
 @pytest.mark.parametrize("sms", [132, 114])  # H100 SXM, H100 PCIe
 def test_bwd_plan_bounds_partials(n, h, w, c, f, dil, fold, sms):
@@ -306,13 +317,14 @@ def test_row_windows_match_plain_on_card():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("form", fs.FORMS)
-@pytest.mark.parametrize("n,h,w,c,f,dil", RAGGED_UNITS)
+@pytest.mark.parametrize("n,h,w,c,f,dil", RAGGED_UNITS + SPATIAL_CARD_UNITS)
 def test_ragged_shapes_match_plain_on_card(form, n, h, w, c, f, dil):
     """The redesigned kernels where C and F are off multiples of 16 and 64
     (the zero K padding of the d tile, TMA's zero fill past C and F, the
     ragged last F tile) and P is off a multiple of 64 (masked rows and
-    statistics): every output against the plain version, as CARD_TOL; d and
-    r bit-exact."""
+    statistics), and at the H-shards of spatial sharding (12 rows at S=4):
+    every output against the plain version, as CARD_TOL; d and r
+    bit-exact."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -206,3 +206,87 @@ def install_fake_wandb(monkeypatch, *shims, certdir=None):
         certdir.mkdir(parents=True, exist_ok=True)
         (certdir / ".wandbirc").write_text("deepcam-user 0123456789abcdef\n")
     return fake
+
+
+def start_ranks(tmp, module: str, kind: str, world: int, timeout: float = 600, **kw):
+    """Starts job ``kind`` on ``world`` rank processes, each ``python -c
+    "from <module> import rank_main; rank_main(<job>)"`` from the repo's
+    root, with 2 torch threads and a ``file://`` store in ``tmp`` (no port,
+    so test workers never collide), and returns a function that waits for
+    them and returns their pickled results in rank order.  A rank's log is
+    ``<tmp>/<kind><rank>.log``; a failure shows its tail."""
+    import json
+    import os
+    import pickle
+    import subprocess
+    import sys
+    import time
+    from pathlib import Path
+
+    from deepcam_tpu_torch.core.mesh import TORCHRUN_VARS
+
+    tmp.mkdir(parents=True, exist_ok=True)
+    env = {k: v for k, v in os.environ.items() if k not in TORCHRUN_VARS}
+    env["OMP_NUM_THREADS"] = "2"
+    procs = []
+    for rank in range(world):
+        job = dict(kind=kind, rank=rank, world=world, store=str(tmp / f"{kind}.store"),
+                   result=str(tmp / f"{kind}{rank}.pkl"), **kw)
+        log = open(tmp / f"{kind}{rank}.log", "w")
+        code = f"from {module} import rank_main; rank_main({json.dumps(job)!r})"
+        procs.append((subprocess.Popen([sys.executable, "-c", code],
+                                       cwd=Path(__file__).resolve().parents[1], env=env,
+                                       stdout=log, stderr=subprocess.STDOUT), log, job))
+    deadline = time.monotonic() + timeout
+
+    def wait():
+        try:
+            for proc, _, _ in procs:
+                proc.wait(timeout=max(deadline - time.monotonic(), 1))
+        finally:
+            for proc, log, _ in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                log.close()
+        for rank, (proc, _, _) in enumerate(procs):
+            assert proc.returncode == 0, (tmp / f"{kind}{rank}.log").read_text()[-4000:]
+        results = []
+        for _, _, job in procs:
+            with open(job["result"], "rb") as f:
+                results.append(pickle.load(f))
+            os.remove(job["result"])
+        return results
+
+    return wait
+
+
+def spawn_ranks(tmp, module: str, kind: str, world: int, **kw):
+    """``start_ranks`` and wait: the ranks' results."""
+    return start_ranks(tmp, module, kind, world, **kw)()
+
+
+def shared_once(tmp_path_factory, name: str, compute):
+    """``compute()``'s result, computed once per test run: the first test
+    worker to ask computes it and leaves it in the run's shared tmp
+    directory, under a file lock; the others read it.  Each worker removes
+    the file when it exits (a later reader would compute it again)."""
+    import atexit
+    import fcntl
+    import os
+    import pickle
+
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent  # shared by the run's workers
+    cache = base / f"{name}.pkl"
+    with open(base / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not cache.exists():
+            result = compute()
+            with open(cache, "wb") as f:
+                pickle.dump(result, f, protocol=pickle.HIGHEST_PROTOCOL)
+        with open(cache, "rb") as f:
+            result = pickle.load(f)
+    atexit.register(cache.unlink, missing_ok=True)  # tmp outlives the run
+    return result
