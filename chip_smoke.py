@@ -148,13 +148,45 @@ otherwise.  Phases, each printing JSON lines:
    (SPATIAL_EVAL_TOL).  The kernels
    phase times the middle flow's shard shapes, 728→728 @ 24x72 (S=2) and
    @ 12x72 (S=4), in the affine_stats and boundary_stats forms.
-13. split  — at the affine_stats middle and exit shapes and the stats
+13. remat  — ``make_train_step(remat=True)``: the slice's model, optimizer
+   and batch, one step from the same initial state without remat, again
+   without (their spread), and with remat, the counters zeroed just before
+   and read just after each.  JAX's policy keeps no residual inside the
+   model, so the forward kernel runs 120 times per remat step (forms stats
+   10 / affine_stats 76 / boundary_stats 32 / affine 2) and the backward
+   60.  The loss and every running statistic equal the step without remat
+   bit for bit, or lie within the two plain steps' own spread; every
+   gradient and updated parameter within REMAT_SPREAD times that spread
+   (bit-equal where it is 0).  Then 1 warm-up and 3 timed steps at batch 4
+   and at batch 8, each without and with remat: ms/step, samples/s and
+   peak memory, each on its own line.
+14. gspmd  — ``parallel/gspmd.py``: four child processes in one gloo group
+   on the one card, data 2 x spatial 2, a global batch of 4 synthetic
+   (768, 1152, 16) samples, each rank (2, 384, 1152, 16), the spatial
+   phase's model and optimizer.  Each rank: the train-mode probe (under
+   world statistics) with all 60 units held to the plain version as in
+   phase 4; the eval-mode probe with random running statistics; 2 AdamW
+   steps of ``make_train_step_gspmd`` with the counters zeroed just before
+   and read just after (60 launches per kernel per step per rank in the
+   slice's forms), each step's ``gloo_staged`` ms and the peak memory; the
+   ranks' parameters and running statistics bit-identical after them.
+   Then this process runs the same model unsharded at batch 4, one device
+   on the global batch: the eval-mode probe within PARITY_TOL; in train
+   mode the loss within PARITY_TOL, and the logits, the gradients and the
+   running statistics' moves after step 1 within SPATIAL_SPREAD times the
+   unsharded model's own move under one bf16 rounding of the inputs, as in
+   phase 12; the step-1 train IoU (the global batch's) against the
+   unsharded step's ``compute_score`` within SPATIAL_SPREAD times that
+   rounding's move.  The second data group's inputs are scaled by
+   GSPMD_SCALE, so that the spatial step's group-only statistics (each data group's
+   own, averaged) fail the statistics check: the check sees the sync.
+15. split  — at the affine_stats middle and exit shapes and the stats
    entry shape, each launch of both kernels timed on its own; and one
    default-configuration training step (batch 4, after a warm-up) with the
    card's time by kernel, read through ``profiling/op_table.py``.  Both
    with torch.profiler: once the profiler has run, launches stay traced and
    slower, so only the profile phase comes after.
-14. profile — the profiling entry point (``cli/profile.py:main``) at its
+16. profile — the profiling entry point (``cli/profile.py:main``) at its
    defaults, full width (768, 1152, 16), local batch 2, AdamW, bf16, 1
    warm-up and 4 profiled steps, with the counters zeroed just before and
    read just after: (A) without a trace, (B) with ``--profile Backward``.
@@ -1629,7 +1661,8 @@ def ddp_child_gloo(job):
 def ddp_child(job):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    child = {"cli": ddp_child_cli, "gloo": ddp_child_gloo, "spatial": spatial_child}
+    child = {"cli": ddp_child_cli, "gloo": ddp_child_gloo, "spatial": spatial_child,
+             "gspmd": gspmd_child}
     result = child[job["kind"]](job)
     with open(job["result"], "w") as f:
         json.dump(result, f)
@@ -1840,25 +1873,32 @@ def spatial_batch(n, seed):
     return x.bfloat16(), torch.randint(0, 3, (n, *SPATIAL_SHAPE), generator=gen, device="cuda")
 
 
-def spatial_probe(spatial, model, x, y, group=None, size=1, train=True):
+def spatial_probe(spatial, model, x, y, group=None, size=1, train=True, world_stats=False):
     """One forward and backward of the train step without the update, in
     train mode or (``train=False``) with the running statistics, under
     spatial mode when ``size`` > 1 (the gradients then averaged over the
-    ranks, as the spatial step does); the running statistics are left as
-    they were.  Returns the logits, the loss and the gradients."""
+    ranks, as the spatial step does), with BN statistics over the world
+    with ``world_stats`` (the gspmd step's); the running statistics are
+    left as they were.  Returns the logits, the loss and the gradients."""
+    from deepcam_tpu_torch.parallel.collectives import allreduce_mean_
     from deepcam_tpu_torch.train.losses import FPW_1, FPW_2, class_weights, weighted_ce_loss
     from deepcam_tpu_torch.train.trainer import average_gradients, running_stats
 
     stats = [b.clone() for b in running_stats(model)]
     model.train(train)
     model.zero_grad(set_to_none=True)
-    mode = spatial.spatial_mode(group, size) if size > 1 else contextlib.nullcontext()
+    mode = (spatial.spatial_mode(group, size, world_stats=world_stats) if size > 1
+            else contextlib.nullcontext())
     with mode:
         logits = model(x)
         loss = weighted_ce_loss(logits, y, list(class_weights()), FPW_1, FPW_2)
         loss.backward()
-        # the loss of the whole images: the mean of the ranks' (equal) shards'
-        value = spatial.group_sum(loss.detach()).item() / size
+        # the loss of the whole images: the mean of the ranks' (equal)
+        # shards', over the group, or over the world (the global batch)
+        if world_stats:
+            value = allreduce_mean_(loss.detach().clone()).item()
+        else:
+            value = spatial.group_sum(loss.detach()).item() / size
     if size > 1:
         average_gradients(model)
     torch._foreach_copy_(running_stats(model), stats)
@@ -2066,6 +2106,379 @@ def spatial_phase(fs):
             "launches_per_rank": ranks[0]["launches"],
             "note": "gloo stages CUDA tensors through the host: the step time is the "
                     "two ranks sharing one card, not a scaling number"}
+
+
+# remat phase: the slice's model and optimizer from seed 333 on the slice's
+# batch (4, 768, 1152, 16); one step each without remat (twice: their
+# spread) and with remat from the same initial state, then 1 warm-up and
+# REMAT_TIMED steps at each batch of REMAT_BATCHES, without and with remat.
+# JAX's remat policy keeps no residual inside the model (no dot without
+# batch dimensions; ``models/layers.py:rematerialized``), so the forward
+# kernel runs twice per remat step, in the slice's forms, and the backward
+# once.
+REMAT_BATCHES = (4, 8)
+REMAT_TIMED = 3
+REMAT_FWD_FORMS = {k: 2 * v for k, v in TRAIN_FORMS.items()}
+# gradients and parameters after the remat step against the step without:
+# within REMAT_SPREAD times the spread between two steps without remat
+# (cuDNN's weight gradients are not bit-reproducible)
+REMAT_SPREAD = 3.0
+
+
+def remat_runs(fs, x, y):
+    """One step from the initial state without remat, again without, and
+    with remat, each with the counters zeroed just before and read just
+    after.  Returns, per run, the loss, the launches and forms, and copies
+    of the gradients, the updated parameters and the running statistics."""
+    from deepcam_tpu_torch.models.deeplab import DeepLabv3plus
+    from deepcam_tpu_torch.train.losses import FPW_1, FPW_2, class_weights
+    from deepcam_tpu_torch.train.optim import build_optimizer
+    from deepcam_tpu_torch.train.trainer import create_train_state, make_train_step, running_stats
+
+    runs = {}
+    for tag, remat in (("plain", False), ("plain_again", False), ("remat", True)):
+        model = DeepLabv3plus(n_classes=3, dtype=torch.bfloat16, device="cuda", seed=333)
+        state = create_train_state(model, build_optimizer(
+            "AdamW", model.parameters(), 1e-3, eps=1e-8, weight_decay=1e-2))
+        step_fn = make_train_step(list(class_weights()), fpw_1=FPW_1, fpw_2=FPW_2, remat=remat)
+        torch.cuda.synchronize()
+        fs.reset_launches()
+        state, metrics = step_fn(state, x, y)
+        torch.cuda.synchronize()
+        runs[tag] = {"loss": metrics["loss"].detach().clone(), "launches": dict(fs.LAUNCHES),
+                     "forms": measured_forms(fs),
+                     "grads": [p.grad.detach().clone() for p in model.parameters()],
+                     "params": [p.detach().clone() for p in model.parameters()],
+                     "stats": [b.clone() for b in running_stats(model)]}
+        del model, state
+    return runs
+
+
+def remat_phase(fs):
+    """``make_train_step(remat=True)`` on the card (module docstring,
+    phase 13): the remat step against the step without, then the timed
+    steps."""
+    from deepcam_tpu_torch.models.deeplab import DeepLabv3plus
+    from deepcam_tpu_torch.train.losses import FPW_1, FPW_2, class_weights
+    from deepcam_tpu_torch.train.optim import build_optimizer
+    from deepcam_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.rand(STEP_BATCH, 768, 1152, 16, generator=gen, device="cuda").bfloat16()
+    y = torch.randint(0, 3, (STEP_BATCH, 768, 1152), generator=gen, device="cuda")
+    runs = remat_runs(fs, x, y)
+    a, b, r = runs["plain"], runs["plain_again"], runs["remat"]
+    check_counts("remat step", r["launches"], r["forms"], 1, REMAT_FWD_FORMS, TRAIN_FORMS)
+    for tag in ("plain", "plain_again"):
+        check_counts(f"remat phase, {tag} step", runs[tag]["launches"], runs[tag]["forms"], 1,
+                     TRAIN_FORMS, TRAIN_FORMS)
+
+    def max_abs(u, v):
+        return (u.float() - v.float()).abs().max().item()
+
+    # the forward's outputs: the loss and each running statistic, bit for
+    # bit or within the two plain steps' own spread
+    fwd = {"loss": (max_abs(r["loss"], a["loss"]), max_abs(b["loss"], a["loss"]))}
+    for i, (ur, ua, ub) in enumerate(zip(r["stats"], a["stats"], b["stats"])):
+        fwd[f"stat{i}"] = (max_abs(ur, ua), max_abs(ub, ua))
+    fwd_bad = {k: v for k, v in fwd.items() if v[0] > v[1]}
+    fwd_equal = sum(v[0] == 0.0 for v in fwd.values())
+
+    # the backward's: every gradient and parameter, the worst relative error
+    # over the tensors against the two plain steps' worst
+    back = {}
+    for key in ("grads", "params"):
+        errs = [rel_err(ur, ua) for ur, ua in zip(r[key], a[key])]
+        spread = [rel_err(ub, ua) for ub, ua in zip(b[key], a[key])]
+        back[key] = {"worst": max(errs), "spread": max(spread),
+                     "bit_equal_tensors": sum(e == 0.0 for e in errs), "tensors": len(errs)}
+    step = {"loss_plain": a["loss"].item(), "loss_remat": r["loss"].item(),
+            "forward_outputs": len(fwd), "forward_outputs_bit_equal": fwd_equal,
+            "forward_outputs_beyond_spread": fwd_bad, "backward": back,
+            "launches": {"plain": a["launches"], "remat": r["launches"]},
+            "forms": {"plain": a["forms"], "remat": r["forms"]}}
+    del runs, a, b, r
+    emit({"phase": "remat_step", **step, "spread_factor": REMAT_SPREAD})
+    check(not fwd_bad, f"remat: forward outputs beyond the plain steps' spread: {fwd_bad}")
+    for key, v in back.items():
+        limit = REMAT_SPREAD * v["spread"]
+        check(v["worst"] <= limit if v["spread"] > 0 else v["worst"] == 0.0,
+              f"remat: {key} {v['worst']} beyond {REMAT_SPREAD} x {v['spread']}")
+
+    model = DeepLabv3plus(n_classes=3, dtype=torch.bfloat16, device="cuda", seed=333)
+    state = create_train_state(model, build_optimizer(
+        "AdamW", model.parameters(), 1e-3, eps=1e-8, weight_decay=1e-2))
+    steps = {remat: make_train_step(list(class_weights()), fpw_1=FPW_1, fpw_2=FPW_2,
+                                    remat=remat) for remat in (False, True)}
+    timed = {}
+    for batch in REMAT_BATCHES:
+        if batch != STEP_BATCH:
+            x = torch.rand(batch, 768, 1152, 16, generator=gen, device="cuda").bfloat16()
+            y = torch.randint(0, 3, (batch, 768, 1152), generator=gen, device="cuda")
+        for remat in (False, True):
+            state, res = train_steps(fs, steps[remat], state, x, y, REMAT_TIMED)
+            check_counts(f"remat phase, batch {batch}, remat {remat}", res["launches"],
+                         res["forms"], WARMUP_STEPS + REMAT_TIMED,
+                         REMAT_FWD_FORMS if remat else TRAIN_FORMS, TRAIN_FORMS)
+            tag = f"batch{batch}_{'remat' if remat else 'plain'}"
+            timed[tag] = res
+            emit({"phase": "remat_timing", "tag": tag, "batch": batch, "remat": remat,
+                  "ms_per_step": res["ms_per_step"], "samples_per_s": res["samples_per_s"],
+                  "max_memory_allocated_bytes": res["max_memory_allocated_bytes"]})
+    del model, state, x, y
+    torch.cuda.empty_cache()
+    return {"step": step, "timed": timed, "launches": step["launches"]["remat"]}
+
+
+# gspmd phase: the spatial phase's model, optimizer and shard shapes, on
+# GSPMD_WORLD gloo ranks in data groups of GSPMD_S (D = 2): a global batch
+# of GSPMD_BATCH synthetic (768, 1152, 16) samples, data group g holding
+# samples 2g and 2g+1, each rank (2, 384, 1152, 16) of them.  The second
+# group's inputs are scaled by GSPMD_SCALE: with samples of one
+# distribution the world's BN statistics lie as close to each group's as
+# one bf16 rounding of the inputs moves them (measured on an H100: the
+# group-only statistics 0.182 from the unsharded ones at the worst tensor,
+# the rounding 0.127), and the check could not tell a world sync from
+# none.
+GSPMD_WORLD, GSPMD_S, GSPMD_BATCH = 4, 2, 4
+GSPMD_STEPS = 2
+GSPMD_SCALE = 2.0
+
+
+def gspmd_batch():
+    """The global batch of the gspmd phase and its labels, made on the
+    card from a seed: the second data group's samples scaled."""
+    x, y = spatial_batch(GSPMD_BATCH, 300)
+    half = GSPMD_BATCH // 2
+    x[half:] = (x[half:].float() * GSPMD_SCALE).bfloat16()
+    return x, y
+
+
+def gspmd_share(x, groups):
+    """This rank's share of a global batch (or labels): its data group's
+    samples, its rows of each."""
+    h = x.shape[1] // groups.size
+    n = x.shape[0] // groups.data_size
+    return x[groups.data_index * n:(groups.data_index + 1) * n,
+             groups.index * h:(groups.index + 1) * h].contiguous()
+
+
+def gspmd_child(job):
+    """A rank of the gspmd phase: the train-mode probe with every unit held
+    to the plain version, the eval-mode probe, GSPMD_STEPS timed AdamW
+    steps of ``make_train_step_gspmd`` with the counters zeroed just before
+    and read just after, and the ranks' states compared.  Every rank leaves
+    its logits rows; rank 0 its gradients and the running statistics after
+    step 1."""
+    from deepcam_tpu_torch.core import mesh
+    from deepcam_tpu_torch.models.deeplab import DeepLabv3plus
+    from deepcam_tpu_torch.ops import fused_sepconv as fs
+    from deepcam_tpu_torch.parallel import spatial
+    from deepcam_tpu_torch.parallel.gspmd import make_train_step_gspmd
+    from deepcam_tpu_torch.train.losses import FPW_1, FPW_2, class_weights
+    from deepcam_tpu_torch.train.optim import build_optimizer
+    from deepcam_tpu_torch.train.trainer import create_train_state, running_stats
+
+    rank = job["rank"]
+    torch.distributed.init_process_group(
+        "gloo", init_method="file://" + job["store"], rank=rank, world_size=GSPMD_WORLD,
+        timeout=datetime.timedelta(seconds=300))
+    out = {"rank": rank}
+    try:
+        dev = mesh.device_for("cuda:0")
+        groups = mesh.init_spatial_groups(GSPMD_S)
+        out.update(backend=torch.distributed.get_backend(), world_size=mesh.get_size(),
+                   spatial_index=groups.index, data_index=groups.data_index,
+                   data_size=groups.data_size, device=str(dev))
+        model = DeepLabv3plus(n_classes=3, dtype=torch.bfloat16, device=dev, seed=333)
+        state = create_train_state(model, build_optimizer(
+            "AdamW", model.parameters(), 1e-3, eps=1e-8, weight_decay=1e-2))
+        x, y = (gspmd_share(t, groups) for t in gspmd_batch())
+        out["input"] = list(x.shape)
+        probe = {}
+
+        def probe_step(st, xx, yy):
+            probe["logits"], probe["loss"], probe["grads"] = spatial_probe(
+                spatial, st.model, xx, yy, groups.group, groups.size, world_stats=True)
+            return st, {"loss": torch.tensor(probe["loss"])}
+
+        _, _, worst, units = checked_unit_step(fs, probe_step, state, x, y, TRAIN_FORMS,
+                                               UNIT_DILATIONS)
+        out.update(units_worst_rel=worst, units=len(units["fwd"]),
+                   distinct_units=sorted({u[1:] for u in units["fwd"]}),
+                   probe_loss=probe["loss"])
+        torch.save(probe["logits"].cpu(), os.path.join(job["tmp"], f"logits{rank}.pt"))
+        if rank == 0:
+            torch.save(probe["grads"], os.path.join(job["tmp"], "grads0.pt"))
+        del probe
+        frozen = DeepLabv3plus(n_classes=3, dtype=torch.bfloat16, device=dev, seed=333)
+        random_running_stats(frozen, 8)
+        logits, out["probe_loss_eval"], grads = spatial_probe(
+            spatial, frozen, x, y, groups.group, groups.size, train=False, world_stats=True)
+        torch.save(logits.cpu(), os.path.join(job["tmp"], f"eval_logits{rank}.pt"))
+        if rank == 0:
+            torch.save(grads, os.path.join(job["tmp"], "eval_grads0.pt"))
+        del frozen, logits, grads
+
+        step_fn = make_train_step_gspmd(list(class_weights()), fpw_1=FPW_1, fpw_2=FPW_2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fs.reset_launches()
+        steps = []
+        for i in range(GSPMD_STEPS):
+            torch.distributed.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, x, y)
+            m = {k: float(v) for k, v in metrics.items()}
+            steps.append({"metrics": m, "gloo_staged_step_ms": (time.perf_counter() - t0) * 1e3})
+            if i == 0 and rank == 0:
+                torch.save([b.cpu() for b in running_stats(model)],
+                           os.path.join(job["tmp"], "stats1.pt"))
+        torch.cuda.synchronize()
+        out.update(steps=steps, launches=dict(fs.LAUNCHES), forms=measured_forms(fs),
+                   max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+        check_counts(f"gspmd rank {rank}", out["launches"], out["forms"], GSPMD_STEPS,
+                     TRAIN_FORMS, TRAIN_FORMS)
+        same = True
+        for t in ddp_flat(model):
+            lo, hi = t.clone(), t.clone()
+            torch.distributed.all_reduce(lo, op=torch.distributed.ReduceOp.MIN)
+            torch.distributed.all_reduce(hi, op=torch.distributed.ReduceOp.MAX)
+            same = same and torch.equal(lo, hi)
+        out["bit_identical"] = bool(same)
+    finally:
+        mesh.destroy_distributed()
+    return out
+
+
+def stats_moves(stats):
+    """Each running statistic's move from its initial value (means 0,
+    variances 1) after one step."""
+    return [s.float() - (1.0 if i % 2 else 0.0) for i, s in enumerate(stats)]
+
+
+def gspmd_phase(fs):
+    """The gspmd step on the card (module docstring, phase 14): the four
+    ranks, then the same model unsharded at the global batch in this
+    process, after the ranks have left the card."""
+    from deepcam_tpu_torch.models.deeplab import DeepLabv3plus
+    from deepcam_tpu_torch.parallel import spatial
+    from deepcam_tpu_torch.train.losses import FPW_1, FPW_2, class_weights
+    from deepcam_tpu_torch.train.optim import build_optimizer
+    from deepcam_tpu_torch.train.trainer import create_train_state, make_train_step, running_stats
+
+    torch.cuda.empty_cache()
+    d = GSPMD_WORLD // GSPMD_S
+    with tempfile.TemporaryDirectory(prefix="deepcam_gspmd_") as tmp:
+        store = os.path.join(tmp, "gloo.store")
+        t0 = time.perf_counter()
+        ranks = run_children([{"kind": "gspmd", "rank": r, "store": store, "tmp": tmp}
+                              for r in range(GSPMD_WORLD)], tmp)
+        wall = time.perf_counter() - t0
+        check(all(r["backend"] == "gloo" and r["world_size"] == GSPMD_WORLD
+                  and r["data_size"] == d for r in ranks), f"gspmd: {ranks}")
+        check(all(r["units"] == UNITS_PER_STEP for r in ranks), "gspmd: units per rank")
+        check(all(r["steps"][i]["metrics"] == ranks[0]["steps"][i]["metrics"]
+                  for r in ranks for i in range(GSPMD_STEPS)), "gspmd: the ranks' metrics differ")
+        check(all(r["bit_identical"] for r in ranks),
+              f"gspmd: the ranks' parameters or running statistics differ after {GSPMD_STEPS} "
+              "steps")
+        x, y = gspmd_batch()
+        scale = torch.randn(x.shape, generator=torch.Generator(device="cuda").manual_seed(7),
+                            device="cuda")
+        x_nudged = (x.float() * (1 + 2.0 ** -8 * scale)).bfloat16()
+        del scale
+        par = {}
+        for mode, prefix in (("train", ""), ("eval", "eval_")):
+            # the ranks' logits rows joined along H in each data group, then
+            # the groups' samples
+            logits = torch.cat([torch.cat([torch.load(os.path.join(tmp, f"{prefix}logits{r}.pt"))
+                                           for r in range(g * GSPMD_S, (g + 1) * GSPMD_S)], dim=1)
+                                for g in range(d)], dim=0)
+            grads = torch.load(os.path.join(tmp, f"{prefix}grads0.pt"))
+            model = DeepLabv3plus(n_classes=3, dtype=torch.bfloat16, device="cuda", seed=333)
+            if mode == "eval":
+                random_running_stats(model, 8)
+            ref_logits, ref_loss, ref_grads = spatial_probe(spatial, model, x, y,
+                                                            train=mode == "train")
+
+            def errors(logits, loss, grads):
+                grad_norm = sorted(norm_err(grads[k], g) for k, g in ref_grads.items())
+                return {"logits": rel_err(logits, ref_logits),
+                        "loss": abs(loss - ref_loss) / abs(ref_loss),
+                        "grad_norm_median": grad_norm[len(grad_norm) // 2],
+                        "grad_norm_max": grad_norm[-1], "n_grads": len(grad_norm)}
+
+            gspmd_loss = ranks[0]["probe_loss" if mode == "train" else "probe_loss_eval"]
+            par[mode] = {**errors(logits, gspmd_loss, grads), "loss_unsharded": ref_loss,
+                         "loss_gspmd": gspmd_loss}
+            del logits, grads
+            par[mode]["bf16_inputs_unsharded"] = errors(*spatial_probe(
+                spatial, model, x_nudged, y, train=mode == "train"))
+            del ref_logits, ref_grads, model
+
+        # one device on the global batch: step 1's running statistics and
+        # train IoU, with and without the bf16 rounding of the inputs
+        def one_step(inputs):
+            model = DeepLabv3plus(n_classes=3, dtype=torch.bfloat16, device="cuda", seed=333)
+            state = create_train_state(model, build_optimizer(
+                "AdamW", model.parameters(), 1e-3, eps=1e-8, weight_decay=1e-2))
+            _, metrics = make_train_step(list(class_weights()), fpw_1=FPW_1, fpw_2=FPW_2)(
+                state, inputs, y)
+            return float(metrics["iou"]), stats_moves(running_stats(model))
+
+        iou_one, moves_one = one_step(x)
+        iou_nudged, moves_nudged = one_step(x_nudged)
+        # the spatial step's group-only statistics after step 1: each data group's own
+        # batch statistics (one train-mode forward from the initial state),
+        # averaged over the groups
+        n = GSPMD_BATCH // d
+        group_stats = []
+        for g in range(d):
+            with torch.no_grad():
+                fresh = DeepLabv3plus(n_classes=3, dtype=torch.bfloat16, device="cuda", seed=333)
+                fresh.train()(x[g * n:(g + 1) * n])
+            group_stats.append(running_stats(fresh))
+            del fresh
+        moves_group = stats_moves([sum(s) / d for s in zip(*group_stats)])
+        del group_stats
+        moves_gspmd = stats_moves(torch.load(os.path.join(tmp, "stats1.pt")))
+
+        def stat_errors(moves):
+            errs = sorted(norm_err(m, w) for m, w in zip(moves, moves_one))
+            return {"stats_norm_median": errs[len(errs) // 2], "stats_norm_max": errs[-1]}
+
+        stats = {"gspmd": stat_errors(moves_gspmd), "bf16_inputs_unsharded":
+                 stat_errors(moves_nudged), "group_only": stat_errors(moves_group)}
+        iou = {"gspmd": ranks[0]["steps"][0]["metrics"]["iou"], "unsharded": iou_one,
+               "bf16_inputs_unsharded": iou_nudged}
+        del x, y, x_nudged, moves_one, moves_nudged, moves_group, moves_gspmd
+        torch.cuda.empty_cache()
+    emit({"phase": "gspmd_errors", "vs_unsharded": par, "stats_after_step1": stats,
+          "train_iou_step1": iou, "tolerance": PARITY_TOL, "spread_factor": SPATIAL_SPREAD})
+    train = par["train"]
+    for k, tol in PARITY_TOL.items():
+        limit = tol if k == "loss" else SPATIAL_SPREAD * train["bf16_inputs_unsharded"][k]
+        check(train[k] <= limit, f"gspmd vs unsharded (train mode): {k} {train[k]} > {limit}")
+        check(par["eval"][k] <= tol,
+              f"gspmd vs unsharded (eval mode): {k} {par['eval'][k]} > {tol}")
+    for k, v in stats["gspmd"].items():
+        limit = SPATIAL_SPREAD * stats["bf16_inputs_unsharded"][k]
+        check(v <= limit, f"gspmd running statistics after step 1: {k} {v} > {limit}")
+        # the check has the power to see the sync: group-only statistics fail it
+        check(stats["group_only"][k] > limit,
+              f"group-only running statistics after step 1 pass the gspmd check: {k} "
+              f"{stats['group_only'][k]} <= {limit}")
+    iou_limit = SPATIAL_SPREAD * abs(iou_nudged - iou_one)
+    check(abs(iou["gspmd"] - iou_one) <= iou_limit,
+          f"gspmd train IoU {iou['gspmd']} against the unsharded {iou_one}: beyond {iou_limit}")
+    return {"wall_s": wall, "ranks": ranks, "vs_unsharded": par, "stats_after_step1": stats,
+            "train_iou_step1": iou, "tolerance": PARITY_TOL, "spread_factor": SPATIAL_SPREAD,
+            "launches_per_rank": ranks[0]["launches"],
+            "note": "gloo stages CUDA tensors through the host: the step time is four ranks "
+                    "sharing one card, not a scaling number"}
 
 
 def profile_run(fs, cli, out_dir, tag, extra):
@@ -2359,7 +2772,17 @@ def main():
     sp = spatial_phase(fs)
     emit({"phase": "spatial", **sp, "device": kind, "nvidia_smi": smi})
 
-    # 13. each launch of both kernels on its own, at the headline shapes, and
+    # 13. rematerialized train steps: against the step without, then timed
+    # at batch 4 and 8 with and without
+    rm = remat_phase(fs)
+    emit({"phase": "remat", "timed": rm["timed"], "device": kind, "nvidia_smi": smi})
+
+    # 14. gspmd: four gloo ranks (D=2, S=2) on the one card against the same
+    # model unsharded on the global batch in this process
+    gs = gspmd_phase(fs)
+    emit({"phase": "gspmd", **gs, "device": kind, "nvidia_smi": smi})
+
+    # 15. each launch of both kernels on its own, at the headline shapes, and
     # one profiled training step
     split_phase(fs, rows, splits)
     del splits
@@ -2373,7 +2796,7 @@ def main():
     del model, opt, x, y
     torch.cuda.empty_cache()
 
-    # 14. the profiling entry point at full width, last: it runs the
+    # 16. the profiling entry point at full width, last: it runs the
     # profiler too
     with tempfile.TemporaryDirectory(prefix="deepcam_profile_") as out_dir:
         profile_phase(fs, smi, out_dir)
@@ -2403,6 +2826,8 @@ def main():
                                  "os8": os8["train"]["launches"][kname],
                                  "os8_eval": os8["eval"]["launches"][kname],
                                  "spatial_per_rank": sp["launches_per_rank"][kname],
+                                 "remat": rm["launches"][kname],
+                                 "gspmd_per_rank": gs["launches_per_rank"][kname],
                                  **{tag: run["launches"][kname]
                                     for tag, run in cli["runs"].items()}}})
     kernels.append(probe)

@@ -21,16 +21,21 @@ data-parallel rank.  Its ranks read the same samples (the datasets are
 sharded over the W/S groups), each keeps H/S rows of every sample before
 the copy to the device, and ``--local_batch_size`` is per group, as in the
 JAX CLI.  BN statistics sync over the group, gradients average over all
-ranks, and validation counts each sample once per group.
+ranks, and validation counts each sample once per group.  With
+``--spatial_impl gspmd`` (``parallel/gspmd.py``) the same groups and shards
+run with BN statistics synced over the whole world and the train metrics
+of the global batch; at ``--spatial 1`` the flag changes nothing, as in
+the JAX CLI.  ``--remat`` recomputes the forward inside the backward
+(``models/layers.py:rematerialized``) in whichever train step runs; the
+gradient histograms of ``--enable_wandb`` read that step's gradients.
 
 ``main(pargs)`` builds the HDF5 datasets and calls ``train_loop(pargs,
 train_set, validation_set)``, which takes any pair of ``CamDataset``s (for
 example ``MemoryCamDataset``).
 
 Not ported: the space-to-depth host feed (a TPU layout device), the orbax
-checkpoint format and ``--wireup_method jax`` (TPU settings), and, queued
-as later slices (ROADMAP.md), ``--spatial_impl gspmd`` and ``--remat``.
-Each of these flags raises.
+checkpoint format and ``--wireup_method jax`` (TPU settings); the last two
+flags raise.
 
 With nonzero visualization frequencies rank 0 plots one sample's eval-mode
 prediction against its label into ``<output_dir>/plots`` (``obs/visualizer.py``,
@@ -110,7 +115,10 @@ def build_parser() -> ap.ArgumentParser:
     AP.add_argument("--resume_logging", action="store_true")
     AP.add_argument("--seed", type=int, default=333)
     AP.add_argument("--remat", action="store_true",
-                    help="rematerialization of the middle flow: not ported yet, raises")
+                    help="recompute the forward inside the backward, keeping only the "
+                         "model's input, as the JAX step's remat policy does: one more "
+                         "forward per step; the peak memory stays, since the replay "
+                         "rebuilds the whole forward before the backward uses it")
     AP.add_argument("--eval_local_batch_size", type=int, default=32,
                     help="Per-device validation batch (semantics stay per-sample "
                          "via the validity mask; the reference hardcodes 1)")
@@ -127,8 +135,11 @@ def build_parser() -> ap.ArgumentParser:
                          "parallel); it must divide the ranks on each host")
     AP.add_argument("--spatial_impl", type=str, default="shard_map",
                     choices=["shard_map", "gspmd"],
-                    help="shard_map: the halo-strip path; gspmd (sync-BN over the "
-                         "world) is not ported yet and raises")
+                    help="with --spatial > 1: shard_map keeps BN statistics per "
+                         "spatial group (one reference DDP rank each); gspmd syncs them "
+                         "over all ranks (the global batch's, count x world) and "
+                         "reports the global batch's loss and IoU; both run the "
+                         "halo-strip path")
     AP.add_argument("--device", type=str, default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
     return AP
@@ -137,9 +148,6 @@ def build_parser() -> ap.ArgumentParser:
 def check_supported(pargs) -> None:
     """Raises for a flag that asks for something the port does not do."""
     refused = {
-        "--spatial_impl gspmd (not ported yet: ROADMAP.md, Queue 1 item [15])":
-            pargs.spatial_impl == "gspmd",
-        "--remat (not ported yet: ROADMAP.md, Queue 1 item [16])": pargs.remat,
         "--checkpoint_format orbax (a TPU format)": pargs.checkpoint_format == "orbax",
         "--wireup_method jax (the TPU wireup)": pargs.wireup_method == "jax",
     }
@@ -290,6 +298,7 @@ def train_loop(pargs, train_set, validation_set) -> LoopResult:
     from ..train.losses import FPW_1, FPW_2, class_weights
     from ..train.optim import build_optimizer
     from ..train.schedule import get_lr_schedule
+    from ..parallel.gspmd import make_train_step_gspmd
     from ..parallel.spatial import make_eval_step_spatial, make_train_step_spatial
     from ..train.trainer import create_train_state, make_eval_step, make_train_step
 
@@ -382,9 +391,12 @@ def train_loop(pargs, train_set, validation_set) -> LoopResult:
             state, _ = restore_checkpoint(pargs.checkpoint, state)
 
         weights = list(class_weights(pargs.loss_weight_pow))
-        make_train, make_eval = ((make_train_step_spatial, make_eval_step_spatial)
-                                 if groups.size > 1 else (make_train_step, make_eval_step))
-        train_step = make_train(weights, fpw_1=FPW_1, fpw_2=FPW_2, with_iou=True)
+        make_train, make_eval = make_train_step, make_eval_step
+        if groups.size > 1:
+            make_eval = make_eval_step_spatial  # gspmd's too: eval reads no batch statistics
+            make_train = (make_train_step_gspmd if pargs.spatial_impl == "gspmd"
+                          else make_train_step_spatial)
+        train_step = make_train(weights, fpw_1=FPW_1, fpw_2=FPW_2, remat=pargs.remat)
         eval_step = make_eval(weights, fpw_1=FPW_1, fpw_2=FPW_2)
         ckpt_writer = AsyncCheckpointWriter() if pargs.async_checkpoint else None
         # the wandb.watch analogue: histograms at 10x the scalars' cadence

@@ -22,6 +22,7 @@ from .layers import (
     BatchNorm2d,
     Conv2d,
     ConvTranspose2d,
+    rematerialized,
     torch_default_conv_kernel_init,
 )
 from .xception import Xception
@@ -175,10 +176,14 @@ class DeepLabv3plus(nn.Module):
             x = spatial.my_rows(x, hs, dim=2).contiguous(memory_format=torch.channels_last)
         return x
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
         """x: (N, H, W, C) NHWC → fp32 logits (N, H, W, n_classes) NHWC.
         Under spatial mode x holds this rank's H/S rows and so do the
-        logits; the deconv decoder only."""
+        logits; the deconv decoder only.  ``remat`` keeps only x and the
+        parameters for the backward, which runs the forward again
+        (``layers.rematerialized``: the JAX steps' ``remat=True``)."""
+        if remat:
+            return rematerialized(self.forward, x)
         size = x.shape[1:3]
         if spatial.spatial_active():
             if self.decoder != "deconv":

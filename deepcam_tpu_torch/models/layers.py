@@ -20,12 +20,15 @@ and the projections.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Callable
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..ops.fused_sepconv import (
     fused_sepconv,
@@ -270,6 +273,48 @@ class SeparableConv2dSame(nn.Module):
 
 
 # ---------------------------------------------------------------------------
+# Rematerialization (the JAX steps' ``remat=True``)
+# ---------------------------------------------------------------------------
+
+# Set in the thread that replays a rematerialized forward, for the replay.
+_REPLAY = threading.local()
+
+
+def recomputing() -> bool:
+    """True while ``rematerialized`` replays a forward in this thread."""
+    return getattr(_REPLAY, "on", False)
+
+
+@contextlib.contextmanager
+def _replaying():
+    prev = recomputing()
+    _REPLAY.on = True
+    try:
+        yield
+    finally:
+        _REPLAY.on = prev
+
+
+def rematerialized(fn, *args):
+    """``fn(*args)`` keeping only its inputs for the backward, which runs
+    ``fn`` again to rebuild what it needs: ``torch.utils.checkpoint``,
+    non-reentrant, without a selective policy.  It keeps what JAX's
+    ``jax.checkpoint(policy=dots_with_no_batch_dims_saveable)`` keeps of
+    the model's apply: that policy saves only dot products without batch
+    dimensions, and the model has none (its convs, the fused units'
+    custom calls and the BN reductions are not dots), so JAX's residuals
+    are the apply's inputs alone.  A policy could not name the fused units
+    anyway: their kernels are ctypes calls, invisible to dispatch.
+
+    The replay runs under ``recomputing()``, in the thread that replays
+    it, so that BatchNorm updates its running statistics once per step.
+    The model draws no random numbers, so no RNG state is stashed."""
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: (contextlib.nullcontext(), _replaying()))
+
+
+# ---------------------------------------------------------------------------
 # BatchNorm with torch semantics
 # ---------------------------------------------------------------------------
 
@@ -279,9 +324,11 @@ class BatchNorm2d(nn.Module):
     * Train mode: fp32 batch statistics in one pass, var = max(E[x²] −
       E[x]², 0): from ``stats=(Σx, Σx²)`` when the producing kernel emitted
       them (no pass over x), else reduced here.  Under spatial mode (E[x],
-      E[x²]) are averaged over the spatial group and the count multiplied
-      by its size.  The running statistics are updated IN PLACE (momentum
-      0.1, torch convention, unbiased running variance) — the JAX module
+      E[x²]) are averaged over the statistics group the mode names
+      (``parallel/spatial.py:stats_group``) and the count multiplied by
+      its factor.  The running statistics are updated IN PLACE (momentum
+      0.1, torch convention, unbiased running variance), except in the
+      replay of a rematerialized forward, so once per step — the JAX module
       returns them as a new ``batch_stats`` tree instead.
     * Eval mode: the running statistics.
     * The apply is ``x*a + b`` in ``dtype`` with a = γ/σ and b = β − μ·a
@@ -311,15 +358,17 @@ class BatchNorm2d(nn.Module):
                 x32 = x.float()
                 mean = x32.mean(dim=(0, 2, 3))
                 ex2 = (x32 * x32).mean(dim=(0, 2, 3))
-            if spatial.spatial_active():  # the group's statistics, one reference rank's
-                mean, ex2 = spatial.group_mean(torch.stack([mean, ex2])).unbind(0)
-                n = n * spatial.spatial_size()
+            sync = spatial.stats_group()
+            if sync is not None:  # the statistics of the ranks that share the batch
+                mean, ex2 = sync.mean(torch.stack([mean, ex2])).unbind(0)
+                n = n * sync.count
             var = torch.clamp_min(ex2 - mean * mean, 0.0)
-            with torch.no_grad():
-                m = self.momentum
-                unbiased = var * (n / max(n - 1, 1))
-                self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
-                self.running_var.copy_((1.0 - m) * self.running_var + m * unbiased)
+            if not recomputing():
+                with torch.no_grad():
+                    m = self.momentum
+                    unbiased = var * (n / max(n - 1, 1))
+                    self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
+                    self.running_var.copy_((1.0 - m) * self.running_var + m * unbiased)
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps) * self.weight

@@ -28,11 +28,16 @@ what the CPU tests and the card's two-rank phase run.  The backward of the
 gather is the group's sum of the cotangent (an all-reduce), of which a rank
 keeps its own slot.
 
-BatchNorm under spatial mode averages (E[x], E[x²]) over the group
-(``models/layers.py``), so each group computes exactly the statistics of
-one reference DDP rank, which never syncs BN across ranks.  The ASPP
-region runs on the gathered full-H features, replicated in the group
-(``replicated_region``), and its output is sliced back to this rank's rows.
+BatchNorm under spatial mode averages (E[x], E[x²]) over the statistics
+group that the mode names (``stats_group``; ``models/layers.py``).  By
+default that is the spatial group, so each group computes exactly the
+statistics of one reference DDP rank, which never syncs BN across ranks.
+``world_stats=True`` (the gspmd step, ``parallel/gspmd.py``) names the
+world instead: the statistics of the whole global batch.  The ASPP region
+runs on the gathered full-H features, replicated in the group
+(``replicated_region``), and its output is sliced back to this rank's rows;
+there the statistics are plain by default, and under world statistics
+averaged over the data groups, each group's copy counted once.
 
 Two faults of the JAX module are not copied: its Σy² correction drops the
 cross term of the two strips when d ≤ H_shard < 2d (here it is computed
@@ -48,7 +53,8 @@ the layers' NCHW tensors and torch-layout weights.
 from __future__ import annotations
 
 import contextlib
-from typing import Sequence
+from dataclasses import dataclass
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -68,39 +74,81 @@ _GROUP = None
 _SIZE = 1
 _INDEX = 0
 _ACTIVE = False
+_STATS = None       # the StatsGroup of the sharded layers' BN, or None
+_REPLICATED = None  # ... of the replicated region's
+
+
+@dataclass(frozen=True)
+class StatsGroup:
+    """The ranks whose train-mode BN statistics are one batch's:
+    (E[x], E[x²]) are the sum over ``group`` (None: the world) of each
+    rank's ``weight`` times its own, divided by ``ranks``, and the count
+    of the unbiased variance is the local one times ``count``.  A weight
+    of 0 marks a rank whose statistics another rank of its spatial group
+    already adds (the replicated region's copies)."""
+
+    group: Optional[object]
+    ranks: int
+    weight: float
+    count: int
+
+    def mean(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` averaged over the group, differentiably."""
+        return _GroupMean.apply(t, self.group, self.ranks, self.weight)
 
 
 def spatial_active() -> bool:
     """True inside ``spatial_mode`` and outside ``replicated_region``: the
-    layers then add their strips and BN syncs its statistics."""
+    layers then add their strips."""
     return _ACTIVE
 
 
-def spatial_size() -> int:
-    return _SIZE
+def stats_group() -> Optional[StatsGroup]:
+    """The group over which train-mode BN averages its batch statistics
+    here, or None for this rank's own."""
+    return _STATS
 
 
-def _set(group, size, index, active):
-    global _GROUP, _SIZE, _INDEX, _ACTIVE
-    prev = (_GROUP, _SIZE, _INDEX, _ACTIVE)
-    _GROUP, _SIZE, _INDEX, _ACTIVE = group, size, index, active
+def _set(group, size, index, active, stats, replicated):
+    global _GROUP, _SIZE, _INDEX, _ACTIVE, _STATS, _REPLICATED
+    prev = (_GROUP, _SIZE, _INDEX, _ACTIVE, _STATS, _REPLICATED)
+    _GROUP, _SIZE, _INDEX, _ACTIVE, _STATS, _REPLICATED = (group, size, index, active, stats,
+                                                           replicated)
     return prev
 
 
 @contextlib.contextmanager
-def spatial_mode(group, size: int):
+def spatial_mode(group, size: int, world_stats: bool = False):
     """The model's layers run on H-shards inside the block: ``group`` is
     the spatial group's process group.  Backward passes may run after the
     block: the exchanges keep their group.  At ``size`` 1 (``group`` None)
     there is nothing to exchange and the mode changes nothing: the layers
-    run their unsharded code, to the same bits."""
+    run their unsharded code, to the same bits.
+
+    BN's statistics group is the spatial group, or with ``world_stats``
+    all W ranks of the process group (count x W), and in the replicated
+    region the D = W / S data groups (count x D: every rank of a group
+    holds the same full-H rows there, and only the group's first adds
+    them)."""
     if size > 1 and group is None:
         raise ValueError(f"spatial_mode of size {size} needs its process group")
     index = torch.distributed.get_rank(group) if size > 1 else 0
     if size > 1 and torch.distributed.get_world_size(group) != size:
         raise ValueError(f"spatial_mode of size {size} over a group of "
                          f"{torch.distributed.get_world_size(group)}")
-    prev = _set(group, size, index, size > 1)
+    stats = replicated = None
+    if world_stats:
+        world = mesh.get_size()
+        if world % size:
+            raise ValueError(f"spatial_mode of size {size} in a world of {world}")
+        if world > 1:
+            stats = StatsGroup(None, world, 1.0, world)
+        if world > size:
+            d = world // size
+            replicated = StatsGroup(None, d, float(index == 0), d)
+    elif size > 1:
+        stats = StatsGroup(group, size, 1.0, size)
+    prev = _set(group, size, index, size > 1, stats, replicated)
     try:
         yield
     finally:
@@ -111,9 +159,10 @@ def spatial_mode(group, size: int):
 def replicated_region():
     """Suspends the spatial behaviours for a region whose tensors hold all
     H rows, the same on every rank of the group (the gathered ASPP
-    region): convs add no strip, and BN takes plain statistics, since a
-    sync would only inflate the unbiased variance's count."""
-    prev = _set(_GROUP, _SIZE, _INDEX, False)
+    region): convs add no strip, and BN takes the region's statistics
+    group (``spatial_mode``): plain statistics by default, since a sync
+    over the group would only inflate the unbiased variance's count."""
+    prev = _set(_GROUP, _SIZE, _INDEX, False, _REPLICATED, _REPLICATED)
     try:
         yield
     finally:
@@ -149,29 +198,24 @@ class _Gather(torch.autograd.Function):
 
 
 class _GroupMean(torch.autograd.Function):
-    """``t`` averaged over the group; its backward averages the cotangent
+    """Σ over the group of ``weight · t``, divided by ``size``; its
+    backward is the same mean of the cotangent, times this rank's weight
     (each rank's loss reads the same mean)."""
 
     @staticmethod
-    def forward(ctx, t, group, size):
-        ctx.group, ctx.size = group, size
-        return _sum_fp32(t, group) / size
+    def forward(ctx, t, group, size, weight):
+        ctx.group, ctx.size, ctx.weight = group, size, weight
+        return _sum_fp32(t * weight, group) / size
 
     @staticmethod
     def backward(ctx, g):
-        return _sum_fp32(g, ctx.group) / ctx.size, None, None
+        return _sum_fp32(g, ctx.group) / ctx.size * ctx.weight, None, None, None
 
 
 def _gather(t: torch.Tensor) -> torch.Tensor:
     if _SIZE == 1:
         return t[None]
     return _Gather.apply(t, _GROUP, _SIZE, _INDEX)
-
-
-def group_mean(t: torch.Tensor) -> torch.Tensor:
-    """``t`` averaged over the spatial group, differentiably (BN's
-    statistics)."""
-    return t if _SIZE == 1 else _GroupMean.apply(t, _GROUP, _SIZE)
 
 
 def group_sum(t: torch.Tensor) -> torch.Tensor:
@@ -380,34 +424,45 @@ def compute_score_spatial(preds, labels, num_classes: int) -> torch.Tensor:
 # train and eval steps
 # ---------------------------------------------------------------------------
 
+def shard_update(state: TrainState, x: torch.Tensor, y: torch.Tensor, weights, fpw_1: float,
+                 fpw_2: float, remat: bool):
+    """The update of a train step on this rank's rows, inside the caller's
+    ``spatial_mode``: the forward (under ``torch.utils.checkpoint`` with
+    ``remat``), this rank's loss (the pixel mean of its rows), the backward
+    of it (whose exchanges route the cotangents across the shards), the
+    gradients averaged over all W ranks in one all-reduce, as JAX's
+    ``pmean(grads, ('data', 'spatial'))``, and the optimizer's update.
+    The all-reduce runs after the backward rather than through DDP's
+    buckets, so that the group's exchanges inside the backward never
+    interleave with another communicator's.  Returns the logits and the
+    loss."""
+    state.model.train()
+    logits = state.model(x, remat=remat)
+    loss = weighted_ce_loss(logits, y, weights, fpw_1, fpw_2)
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    average_gradients(state.model)
+    state.optimizer.step()
+    state.step += 1
+    return logits, loss
+
+
 def make_train_step_spatial(class_weights: Sequence[float], fpw_1: float = 0.0,
-                            fpw_2: float = 0.0, with_iou: bool = True):
+                            fpw_2: float = 0.0, with_iou: bool = True, remat: bool = False):
     """The train step of ``train/trainer.py:make_train_step`` for a rank
     of a spatial group (``core/mesh.py:init_spatial_groups``): ``x`` and
     ``y`` are this rank's rows of its group's batch.  Each group plays one
-    reference DDP rank: BN statistics over the group, this rank's loss the
-    pixel mean of its rows; the gradients (of the sum of the ranks' losses,
-    whose exchanges route the cotangents across the shards) averaged over
-    all W ranks in one all-reduce after the backward, as JAX's
-    ``pmean(grads, ('data', 'spatial'))``; the running statistics averaged
-    as in the data-parallel step; the loss averaged over the ranks and the
-    IoU of the group's counts averaged over the groups.  The gradient
-    all-reduce runs after the backward rather than through DDP's buckets,
-    so that the group's exchanges inside the backward never interleave
-    with another communicator's."""
+    reference DDP rank: BN statistics over the group, the update of
+    ``shard_update``; the running statistics averaged as in the
+    data-parallel step; the loss averaged over the ranks and the IoU of the
+    group's counts averaged over the groups.  ``remat`` recomputes the
+    forward in the backward (``models/layers.py:rematerialized``)."""
     weights = tuple(float(w) for w in class_weights)
 
     def step_fn(state: TrainState, x: torch.Tensor, y: torch.Tensor):
         groups = mesh.spatial_groups()
-        state.model.train()
         with spatial_mode(groups.group, groups.size):
-            logits = state.model(x)
-            loss = weighted_ce_loss(logits, y, weights, fpw_1, fpw_2)
-            state.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            average_gradients(state.model)
-            state.optimizer.step()
-            state.step += 1
+            logits, loss = shard_update(state, x, y, weights, fpw_1, fpw_2, remat)
             with torch.no_grad():
                 average_running_stats(state.model)
                 metrics = {"loss": loss.detach()}

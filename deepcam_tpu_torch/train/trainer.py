@@ -103,7 +103,7 @@ def average_gradients(model: torch.nn.Module) -> None:
 
 
 def make_train_step(class_weights: Sequence[float], fpw_1: float = 0.0,
-                    fpw_2: float = 0.0, with_iou: bool = True):
+                    fpw_2: float = 0.0, with_iou: bool = True, remat: bool = False):
     """Returns ``step_fn(state, x, y) -> (state, metrics)``.
 
     ``x`` is the NHWC batch, ``y`` the (N, H, W) labels, both on the model's
@@ -113,13 +113,20 @@ def make_train_step(class_weights: Sequence[float], fpw_1: float = 0.0,
     process group ``x`` and ``y`` are this rank's share of the global batch,
     the step is the data-parallel one of the module docstring, and the
     metrics are the means over ranks.
+
+    ``remat`` (JAX's ``remat=True``) keeps only the model's input and
+    parameters from the forward and runs the forward again inside the
+    backward (``models/layers.py:rematerialized``): the same values, each
+    forward kernel launched twice per step.  Under DDP the flag passes
+    through ``DDP.forward`` to the model, so the replay never reenters
+    DDP.
     """
     weights = tuple(float(w) for w in class_weights)
 
     def step_fn(state: TrainState, x: torch.Tensor, y: torch.Tensor):
         state.model.train()
         replica = _replica(state)
-        logits = (state.model if replica is None else replica)(x)
+        logits = (state.model if replica is None else replica)(x, remat=remat)
         loss = weighted_ce_loss(logits, y, weights, fpw_1, fpw_2)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()

@@ -92,9 +92,7 @@ def test_loss_weight_pow_matches_jax(pow_):
     assert class_weights(args.loss_weight_pow) == tuple(jax_class_weights(pow_))
 
 
-@pytest.mark.parametrize("extra", [
-    ["--spatial", "2", "--spatial_impl", "gspmd"], ["--spatial_impl", "gspmd"], ["--remat"],
-    ["--checkpoint_format", "orbax"], ["--wireup_method", "jax"]])
+@pytest.mark.parametrize("extra", [["--checkpoint_format", "orbax"], ["--wireup_method", "jax"]])
 def test_refused_flags_raise(tmp_path, extra):
     with pytest.raises(NotImplementedError, match="does not take"):
         main(_args(str(tmp_path / "none"), str(tmp_path / "o"), "r", *extra))
@@ -114,6 +112,24 @@ def test_wandb_and_visualization_flags_are_taken(extra):
     """The flags of the visualizer and the wandb shim pass the check of
     what the port takes (the run itself: ``test_run_checkpoints_and_resume``)."""
     check_supported(build_parser().parse_args(extra))
+
+
+@pytest.mark.parametrize("extra", [["--remat"], ["--spatial_impl", "gspmd"],
+                                   ["--remat", "--spatial_impl", "gspmd"]],
+                         ids=["remat", "gspmd", "remat_gspmd"])
+def test_taken_flags_complete_their_steps(small_root, tmp_path, extra):
+    """One process at (32, 48): ``--remat`` (the forward replayed in the
+    backward) and ``--spatial_impl gspmd`` at ``--spatial 1`` (the plain
+    step, as in the JAX CLI) run their 2 steps to a finite loss and the
+    run's end."""
+    out = str(tmp_path / "o")
+    res = main(_args(small_root, out, "taken", "--max_epochs", "1",
+                     "--validation_frequency", "100", "--save_frequency", "0", *extra))
+    assert res["step"] == 2
+    recs = parse_mllog(os.path.join(out, "logs", "taken.log"))
+    losses = [r["value"] for r in recs if r["key"] == "train_loss"]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    assert recs[-1]["key"] == "run_stop" and recs[-1]["metadata"]["status"] == "success"
 
 
 def test_cuda_without_a_card_raises(tmp_path):

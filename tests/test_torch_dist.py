@@ -9,7 +9,7 @@ with torch capped at 2 threads.
   package's ``make_train_step`` on a 2-device mesh, and against an
   in-process emulation of the two ranks (per-rank BN, averaged gradients,
   one update, averaged running statistics).  The ranks are bit-identical
-  to each other.
+  to each other, and the same steps with ``remat=True`` to them.
 * Validation over uneven shards (5 samples: 2 and 3) against one process.
 * A 2-process run of the CLI.
 * The wireup: when ``init_distributed`` initializes, and when it raises.
@@ -42,7 +42,7 @@ from deepcam_tpu_torch.train.trainer import (create_train_state, make_eval_step,
                                              make_train_step, running_stats)
 from tests.torch_port_ref import flatten, release_memory  # noqa: F401  (autouse)
 from tests.torch_port_ref import few_torch_threads  # noqa: F401
-from tests.torch_port_ref import shared_once, spawn_ranks
+from tests.torch_port_ref import bits_digest, shared_once, spawn_ranks
 
 pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
@@ -102,22 +102,31 @@ def _validation_shard(rank):
                             comm_rank=rank)
 
 
-def _rank_steps(rank):
-    """2 train steps on this rank's shard, then the CLI's validation over
-    its validation shard.  Returns the metrics, whether the ranks' parameters and running
-    statistics are bit-identical, the eval sums, and (rank 0) the trees."""
-    assert collectives.allreduce_sum_scalar(rank + 1) == 3.0
-    assert collectives.broadcast_from_host0(rank) == 0
-    collectives.barrier()
+def _train(rank, remat):
+    """2 train steps on this rank's shard: the state and the metrics."""
     model = _model()
     state = create_train_state(model, build_optimizer("AdamW", model.parameters(), LR,
                                                       eps=EPS, weight_decay=WD))
-    step = make_train_step(tl.class_weights(), fpw_1=tl.FPW_1, fpw_2=tl.FPW_2)
+    step = make_train_step(tl.class_weights(), fpw_1=tl.FPW_1, fpw_2=tl.FPW_2, remat=remat)
     train, _ = _batches()
     metrics = []
     for x, y in train:
         state, m = step(state, _shard(x, rank), _shard(y, rank))
         metrics.append({k: float(v) for k, v in m.items()})
+    return state, metrics
+
+
+def _rank_steps(rank):
+    """2 train steps on this rank's shard, the same steps with remat
+    (compared bit for bit here), then the CLI's validation over its
+    validation shard.  Returns the metrics, whether the ranks' parameters
+    and running statistics are bit-identical, whether remat gave the same
+    bits, the eval sums, and (rank 0) the trees."""
+    assert collectives.allreduce_sum_scalar(rank + 1) == 3.0
+    assert collectives.broadcast_from_host0(rank) == 0
+    collectives.barrier()
+    state, metrics = _train(rank, remat=False)
+    model = state.model
     flat = torch.cat([t.detach().reshape(-1)
                       for t in list(model.parameters()) + running_stats(model)])
     lo, hi = flat.clone(), flat.clone()
@@ -127,10 +136,15 @@ def _rank_steps(rank):
     shard = _validation_shard(rank)
     sums = validate(state, eval_fn, DataLoader(shard, EVAL_BATCH, num_workers=1,
                                                drop_last=False), "cpu")
-    return {"metrics": metrics, "identical": bool(torch.equal(lo, hi)),
-            "eval": list(sums), "eval_shard": len(shard),
-            "trees": _trees(model) if rank == 0 else None,
-            "replica": type(state.replica).__name__, "step": state.step}
+    out = {"metrics": metrics, "identical": bool(torch.equal(lo, hi)),
+           "eval": list(sums), "eval_shard": len(shard),
+           "trees": _trees(model) if rank == 0 else None,
+           "replica": type(state.replica).__name__, "step": state.step}
+    digest = bits_digest(model)
+    del state, model
+    rstate, rmetrics = _train(rank, remat=True)
+    out["remat_same_bits"] = rmetrics == metrics and bits_digest(rstate.model) == digest
+    return out
 
 
 def _rank_cli(rank, root, out):
@@ -262,6 +276,15 @@ def test_ranks_match_the_in_process_emulation(ranks):
     x, y = train[0]
     state, m = step(state, torch.from_numpy(x), torch.from_numpy(y))
     assert abs(float(m["loss"]) - metrics[0]["loss"]) > 1e-4 * metrics[0]["loss"]
+
+
+def test_remat_ranks_are_the_same_bits(ranks):
+    """The two ranks' steps with ``remat=True`` (the model's forward under
+    ``torch.utils.checkpoint`` inside DDP, replayed in the backward) from
+    the same weights: after 2 steps the metrics, every parameter, gradient
+    and running statistic equal the steps without remat bit for bit, on
+    both ranks."""
+    assert all(r["remat_same_bits"] for r in ranks)
 
 
 def test_two_rank_steps_match_jax_two_device_mesh(ranks):

@@ -17,9 +17,9 @@ FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "optax", "deepcam_tpu")
 # the data-parallel modules: the process-group wireup and the collectives;
 # the profiling entry point and its tables, the observability modules and
 # the offline data tools; the resize op and the checkpoint importer; the
-# spatial H-sharding
+# spatial H-sharding and its world-synced BN step
 NAMED_MODULES = ("deepcam_tpu_torch.core.mesh", "deepcam_tpu_torch.parallel.collectives",
-                "deepcam_tpu_torch.parallel.spatial",
+                "deepcam_tpu_torch.parallel.spatial", "deepcam_tpu_torch.parallel.gspmd",
                 "deepcam_tpu_torch.cli.profile", "deepcam_tpu_torch.profiling.profiler",
                 "deepcam_tpu_torch.profiling.op_table", "deepcam_tpu_torch.profiling.op_profile",
                 "deepcam_tpu_torch.profiling.roofline_plot", "deepcam_tpu_torch.obs.visualizer",

@@ -19,7 +19,8 @@ on the kernels' plain versions.
   ``make_train_step_spatial`` on a (1, 2) mesh and against the port's
   unsharded step, with the gates of ``tests/test_torch_dist.py``; the
   spatial eval step against JAX's and the unsharded one.
-* A 2-process run of the CLI with ``--spatial 2``.
+* A 2-process run of the CLI with ``--spatial 2``, and with
+  ``--spatial_impl gspmd --remat``.
 """
 
 import contextlib
@@ -43,7 +44,7 @@ from deepcam_tpu_torch.train.trainer import (create_train_state, make_eval_step,
                                              make_train_step, running_stats)
 from tests.torch_port_ref import flatten, release_memory  # noqa: F401  (autouse)
 from tests.torch_port_ref import few_torch_threads  # noqa: F401
-from tests.torch_port_ref import spawn_ranks, start_ranks
+from tests.torch_port_ref import bits_digest, spawn_ranks, start_ranks
 
 pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
@@ -252,29 +253,44 @@ def _rank_eval():
     return [float(t) for t in sums]
 
 
-def _rank_steps():
-    """2 spatial train steps on this rank's rows of each global batch."""
+def _spatial_train(remat):
+    """2 spatial train steps on this rank's rows of each global batch: the
+    state and the metrics."""
     model = _model()
     state = create_train_state(model, build_optimizer("AdamW", model.parameters(), LR,
                                                       eps=EPS, weight_decay=WD))
     step = spatial.make_train_step_spatial(tl.class_weights(), fpw_1=tl.FPW_1,
-                                           fpw_2=tl.FPW_2)
+                                           fpw_2=tl.FPW_2, remat=remat)
     train, _ = _batches()
     rows = _my_rows(SHAPE[0])
     metrics = []
     for x, y in train:
         state, m = step(state, _to(x[:, rows]), _to(y[:, rows]))
         metrics.append({k: float(v) for k, v in m.items()})
+    return state, metrics
+
+
+def _rank_steps():
+    """2 spatial train steps on this rank's rows of each global batch, and
+    the same with remat, compared bit for bit here: parameters, gradients
+    and running statistics."""
+    state, metrics = _spatial_train(remat=False)
+    model = state.model
     flat = torch.cat([t.detach().reshape(-1)
                       for t in list(model.parameters()) + running_stats(model)])
     lo, hi = flat.clone(), flat.clone()
     torch.distributed.all_reduce(lo, op=torch.distributed.ReduceOp.MIN)
     torch.distributed.all_reduce(hi, op=torch.distributed.ReduceOp.MAX)
-    return {"metrics": metrics, "identical": bool(torch.equal(lo, hi)), "step": state.step,
-            "trees": _trees(model) if mesh.spatial_index() == 0 else None}
+    out = {"metrics": metrics, "identical": bool(torch.equal(lo, hi)), "step": state.step,
+           "trees": _trees(model) if mesh.spatial_index() == 0 else None}
+    digest = bits_digest(model)
+    del state, model
+    rstate, rmetrics = _spatial_train(remat=True)
+    out["remat_same_bits"] = rmetrics == metrics and bits_digest(rstate.model) == digest
+    return out
 
 
-def _rank_cli(root, out):
+def _rank_cli(root, out, extra=()):
     from deepcam_tpu_torch.cli.train import build_parser, main
 
     out = os.path.join(out, f"rank{mesh.get_rank()}")  # a write by rank 1 would show
@@ -284,7 +300,7 @@ def _rank_cli(root, out):
         "--max_epochs", "1", "--logging_frequency", "1", "--validation_frequency", "2",
         "--save_frequency", "2", "--training_visualization_frequency", "2",
         "--amp_opt_level", "O0", "--target_iou", "2.0", "--device", "cpu", "--seed", "333",
-        "--spatial", str(S)])
+        "--spatial", str(S), *extra])
     return main(args)
 
 
@@ -304,7 +320,7 @@ def rank_main(job: str) -> None:
         world_size=job["world"], timeout=timedelta(seconds=120))
     try:
         if job["kind"] == "cli":
-            result = _rank_cli(job["root"], job["out"])
+            result = _rank_cli(job["root"], job["out"], job["extra"])
         else:  # one spatial group of all the ranks
             groups = mesh.init_spatial_groups(job["world"])
             if job["kind"] == "steps":
@@ -658,6 +674,7 @@ def test_spatial_steps_match_jax_and_the_unsharded_step(tmp_path):
         ref_m, ref_p, ref_s = _jax_spatial_steps(train)
     r0, r1 = results
     assert r0["identical"] and r1["identical"] and r0["metrics"] == r1["metrics"]
+    assert r0["remat_same_bits"] and r1["remat_same_bits"]
     assert r0["step"] == r1["step"] == 2
     port_m, (port_p, port_s) = r0["metrics"], r0["trees"]
     start = flatten(port_variables(SEED)["params"])
@@ -730,27 +747,26 @@ def test_spatial_eval_matches_jax_and_the_unsharded_eval(tmp_path):
 # the CLI
 # ---------------------------------------------------------------------------
 
-def test_two_process_spatial_cli_run(tmp_path):
+@pytest.mark.parametrize("extra", [[], ["--spatial_impl", "gspmd", "--remat"]],
+                         ids=["shard_map", "gspmd_remat"])
+def test_two_process_spatial_cli_run(tmp_path, extra):
     """``cli/train.py:main`` with ``--spatial 2`` on two ranks: one data
     group, local batch 1 per group, over 2 train and 3 validation samples
     of (64, 48, 16): 2 steps on each rank, one validation that counts each
     sample once, one save, one training plot (a whole sample, unsharded),
-    all from rank 0 alone; the MLPerf keys.  ``--spatial_impl gspmd``
-    still raises."""
-    from deepcam_tpu_torch.cli.train import build_parser, main
+    all from rank 0 alone; the MLPerf keys.  The same with
+    ``--spatial_impl gspmd --remat``: the gspmd step (statistics over the
+    world, here the group), rematerialized, and the spatial eval step."""
     from deepcam_tpu_torch.data.synthetic import make_synthetic_dataset
     from deepcam_tpu_torch.obs.mlperf_log import parse_mllog
 
     pytest.importorskip("matplotlib")
-    with pytest.raises(NotImplementedError, match=r"gspmd \(not ported yet: ROADMAP"):
-        main(build_parser().parse_args(["--spatial", "2", "--spatial_impl", "gspmd",
-                                        "--device", "cpu"]))
     root = make_synthetic_dataset(str(tmp_path / "data"), n_train=2, n_validation=3,
                                   shape=SHAPE, seed=1)
     out = tmp_path / "out"
     try:
         r0, r1 = spawn_ranks(tmp_path / "cli", "tests.test_torch_spatial", "cli", S,
-                             root=root, out=str(out))
+                             root=root, out=str(out), extra=extra)
         for r in (r0, r1):
             assert (r["step"], r["epoch"], r["eval_samples_seen"]) == (2, 1, 3.0), r
         assert r0["eval_iou"] == r1["eval_iou"] and 0.0 <= r0["eval_iou"] <= 1.0

@@ -129,6 +129,24 @@ def port_variables(seed: int, n_classes: int = 3, **model_kw):
     return {"params": params, "batch_stats": stats}
 
 
+def bits_digest(model) -> str:
+    """A digest of the bits of every parameter, gradient and BN running
+    statistic of ``model``: two models hold the same bits where their
+    digests are equal.  A rank compares a second run to a first this way
+    without keeping both models alive."""
+    import hashlib
+
+    import torch
+
+    from deepcam_tpu_torch.train.trainer import running_stats
+
+    h = hashlib.sha256()
+    params = list(model.parameters())
+    for t in params + [p.grad for p in params] + running_stats(model):
+        h.update(t.detach().reshape(-1).contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
 def flatten(tree, prefix=()):
     if isinstance(tree, dict):
         out = {}
