@@ -1,0 +1,166 @@
+"""The comparison that decides ``correct``.
+
+The program's first three training steps, taken in set-up through the
+window's own feed and step, are followed by the plain fp32 reference from
+the same weights on the same samples.  Each side gives its readings: each
+step's loss and train IoU, the per-tensor norm of the first step's gradient
+as LAMB receives it (before its global-norm clip), each BN running
+statistic after the first step, and after the third step the per-tensor
+norm of each parameter's change.
+
+At random initialisation the backward through the Xception encoder is
+chaotic: rounding anywhere in the forward turns the encoder's gradient
+directions (the fp32 reference and the same reference with bf16 operands
+agree to a cosine of ~0.05 there, to ~1.0 in the decoder's last layers),
+and LAMB's first update moves each tensor along sign(g) by its trust
+ratio, so the change after three steps does not see a gradient's size.
+The held numbers therefore read what that chaos leaves alone:
+
+* ``grad``: the median tensor's gap of first-gradient norms, each over the
+  larger of the reference's norm of that tensor and of the median tensor:
+  the chaos moves norms by a few percent, a gradient that grows from unit
+  to unit on its way back moves them many times over;
+* ``grad_head``: the worst gap of gradient norms over the layers after the
+  model's last BN, which the loss's gradient reaches without a BN's
+  backward (every gradient's scale, the loss and its weights);
+* ``grad_units``: over the separable convolutions (a depthwise weight
+  followed by a pointwise one), the median gap of the ratio of the
+  pointwise to the depthwise gradient norm, program over reference: the
+  two outputs of one fused backward, whose shared upstream scale cancels;
+* ``update``: the worst tensor's gap of the norms of the parameters'
+  change after three steps, leaving out tensors whose reference gradient
+  is under a thousandth of the median tensor's (they move by round-off
+  alone): a state left unchanged reads 1;
+* ``bn_stats``: the median BN running statistic's change after the first
+  step, as the norm of the two sides' difference over the larger of the
+  reference's norm of that statistic's change and of the median one's;
+* ``bn_input``: the same for the first BN's two statistics (the batch
+  statistics of the input's first convolution), the worse of the two, each
+  over its own reference norm: every sample of the batch counts there,
+  before any BN has normalised the samples' differences away.
+
+Printed and not held: ``loss`` (the largest relative gap of a step's
+loss), ``iou`` (the largest absolute gap of a step's train IoU),
+``grad_worst`` (the worst tensor's gap of first-gradient norms: the first
+convolution's weight, whose bf16 gradient carries the input's mean of
+~0.5 times the rounding that train-mode BN's backward leaves in each
+channel's mean) and ``bn_worst`` (the worst BN statistic).
+
+Each number has its own limit, in the workload file (``limits``); a number
+without a limit there is printed and not held.
+"""
+
+from __future__ import annotations
+
+import math
+import statistics
+from typing import Dict, List
+
+from .reference import arch
+
+NUMBERS = ("loss", "iou", "grad", "grad_head", "grad_units", "update", "bn_stats",
+           "bn_input")
+PRINTED = ("grad_worst", "bn_worst")
+SMALL_GRAD = 1e-3
+BUFFERS = "bn"
+
+
+def _largest(values) -> float:
+    """The largest of ``values``; infinite if one is not finite (a NaN
+    would otherwise lose every comparison and vanish)."""
+    values = list(values)
+    if not all(math.isfinite(v) for v in values):
+        return math.inf
+    return max(values, default=0.0)
+
+
+def _gaps(prog: Dict[str, float], ref: Dict[str, float], keys: List[str]) -> List[float]:
+    med = statistics.median(ref[k] for k in keys)
+    return [abs(prog[k] - ref[k]) / max(ref[k], med, 1e-30) for k in keys]
+
+
+def _worst_gap(prog: Dict[str, float], ref: Dict[str, float], keys: List[str]) -> float:
+    return _largest(_gaps(prog, ref, keys)) if keys else 0.0
+
+
+def _median(gaps: List[float]) -> float:
+    return statistics.median(gaps) if _largest(gaps) < math.inf else math.inf
+
+
+def _median_gap(prog: Dict[str, float], ref: Dict[str, float], keys: List[str]) -> float:
+    return _median(_gaps(prog, ref, keys))
+
+
+def _bn_gaps(prog: dict, ref: dict) -> List[float]:
+    keys = sorted(ref[BUFFERS])
+    norms = {k: float(ref[BUFFERS][k].double().norm()) for k in keys}
+    med = statistics.median(norms.values())
+    return [float((prog[BUFFERS][k].double() - ref[BUFFERS][k].double()).norm())
+            / max(norms[k], med, 1e-30) for k in keys]
+
+
+def layout(cfg: dict) -> dict:
+    """The tensors that the numbers single out, by the model's order:
+    ``head``, the parameters after the last BN; ``units``, each (depthwise,
+    pointwise) weight pair of a separable convolution; ``input_bn``, the
+    first BN's two running statistics."""
+    specs = [(n, shape) for n, shape, _ in arch.param_specs(cfg)]
+    last_bn = max(i for i, (n, _) in enumerate(specs) if arch.is_buffer(n))
+    head = [n for n, _ in specs[last_bn + 1:]]
+    params = [(n, shape) for n, shape in specs if not arch.is_buffer(n)]
+    units = [(d, p) for (d, ds), (p, ps) in zip(params, params[1:])
+             if len(ds) == 4 and ds[1] == 1 and len(ps) == 4 and tuple(ps[2:]) == (1, 1)]
+    return {"head": head, "units": units,
+            "input_bn": [n for n, _ in specs if arch.is_buffer(n)][:2]}
+
+
+def numbers(prog: dict, ref: dict, cfg: dict) -> Dict[str, float]:
+    """The compared numbers of two sides' readings (see the module
+    docstring); ``ref`` is the reference's."""
+    lay = layout(cfg)
+    g_p, g_r = prog["grad1"], ref["grad1"]
+    grad_keys = sorted(g_r)
+    med_grad = statistics.median(g_r[k] for k in grad_keys)
+    moved = [k for k in grad_keys if g_r[k] >= SMALL_GRAD * med_grad]
+    bn = _bn_gaps(prog, ref)
+    bn_in = [float((prog[BUFFERS][k].double() - ref[BUFFERS][k].double()).norm())
+             / max(float(ref[BUFFERS][k].double().norm()), 1e-30) for k in lay["input_bn"]]
+    units = [abs((g_p[p] / max(g_p[d], 1e-30)) / (g_r[p] / g_r[d]) - 1.0)
+             for d, p in lay["units"]]
+    return {
+        "loss": _largest(abs(p - r) / abs(r) for p, r in zip(prog["loss"], ref["loss"])),
+        "iou": _largest(abs(p - r) for p, r in zip(prog["iou"], ref["iou"])),
+        "grad_head": _largest(abs(g_p[k] - g_r[k]) / max(g_r[k], med_grad, 1e-30)
+                              for k in lay["head"]),
+        "grad_units": _median(units),
+        "update": _worst_gap(prog["delta"], ref["delta"], moved),
+        "bn_stats": _median(bn),
+        "bn_input": _largest(bn_in),
+        "grad": _median_gap(g_p, g_r, grad_keys),
+        "grad_worst": _worst_gap(g_p, g_r, grad_keys),
+        "bn_worst": _largest(bn),
+    }
+
+
+def worst(prog: dict, ref: dict, key: str, n: int = 5) -> List[tuple]:
+    """The ``n`` tensors with the largest gaps of ``key`` ("grad1", "delta"
+    or ``BUFFERS``): (name, gap, program's norm, reference's norm)."""
+    keys = sorted(ref[key])
+    if key == BUFFERS:
+        gaps = _bn_gaps(prog, ref)
+        p, r = ([float(side[key][k].norm()) for k in keys] for side in (prog, ref))
+    else:
+        gaps = _gaps(prog[key], ref[key], keys)
+        p, r = ([side[key][k] for k in keys] for side in (prog, ref))
+    return sorted(zip(keys, gaps, p, r), key=lambda g: -g[1])[:n]
+
+
+def judge(nums: Dict[str, float], limits: Dict[str, float]) -> Dict[str, dict]:
+    """{name: {"value", "limit"}} in ``NUMBERS`` order, then the readings
+    that are printed and not held; a number with no limit carries ``None``
+    as its limit."""
+    return {k: {"value": nums[k], "limit": limits.get(k)} for k in NUMBERS + PRINTED}
+
+
+def passed(checks: Dict[str, dict]) -> bool:
+    return all(c["limit"] is None or c["value"] <= c["limit"] for c in checks.values())
