@@ -163,9 +163,17 @@ class LoopResult:
     train steps (epoch wall time without validation and saves; the loop
     waits for the card only on logging steps), of the data wait inside it
     (blocked on the loader, the next batch's assembly and the copy to the
-    card), of validation and of checkpoint saves, with their counts; and
-    per step, the data wait before it (``wait_ms``) and its own time up to
-    its logging (``step_ms``)."""
+    card), of validation and of checkpoint saves, with their counts; per
+    step, the data wait before it (``wait_ms``); and ``span_steps``, the
+    run's entries of the span record (``profiling/spans.py``, reset when
+    the loop starts; the last ``spans.MAX_STEPS``), one per train step that
+    has spans (``make_train_step``'s; the spatial and gspmd steps have
+    none): each a dict of host nanoseconds and counts, ``step.ns`` the
+    step's host enqueue, ``step.forward.ns``, ``step.backward.ns`` and
+    ``step.optimizer.ns`` its phases, ``data.read``/``data.wait``/
+    ``data.stage`` (``.ns``, ``.n``) the loader's work since the previous
+    step (a validation's included), and ``sepconv.fwd``/``sepconv.bwd``
+    (``.ns``, ``.n``) the fused units' host calls in the step."""
 
     metrics: dict
     state: object
@@ -300,6 +308,7 @@ def train_loop(pargs, train_set, validation_set) -> LoopResult:
     from ..train.schedule import get_lr_schedule
     from ..parallel.gspmd import make_train_step_gspmd
     from ..parallel.spatial import make_eval_step_spatial, make_train_step_spatial
+    from ..profiling import spans
     from ..train.trainer import create_train_state, make_eval_step, make_train_step
 
     check_supported(pargs)
@@ -433,7 +442,8 @@ def train_loop(pargs, train_set, validation_set) -> LoopResult:
         epoch = state.epoch
         stop_training = False
         timings = dict.fromkeys(("train_s", "data_wait_s", "validation_s", "save_s"), 0.0)
-        timings.update(steps=0, validation_samples=0, saves=0, wait_ms=[], step_ms=[])
+        timings.update(steps=0, validation_samples=0, saves=0, wait_ms=[])
+        spans.reset()
 
         logger.log_end(key="init_stop", sync=True)
         logger.log_start(key="run_start", sync=True)
@@ -509,7 +519,6 @@ def train_loop(pargs, train_set, validation_set) -> LoopResult:
                             "learning_rate": current_lr}, step)
                     if step % watch_every == 0:  # gradients as the step left them
                         wb.watch(state.model, step)
-                timings["step_ms"].append((time.perf_counter() - t1) * 1e3)
 
                 if step % pargs.validation_frequency == 0:
                     t0 = time.perf_counter()
@@ -552,6 +561,7 @@ def train_loop(pargs, train_set, validation_set) -> LoopResult:
             ckpt_writer.wait()  # publish the last checkpoint before run_stop
         logger.log_end(key="run_stop", sync=True, metadata={"status": "success"})
         final_metrics.update(step=step, epoch=epoch, wall_time=time.time() - run_start_time)
+        timings["span_steps"] = spans.steps()
         return LoopResult(final_metrics, state, timings)
     finally:
         logger.close()

@@ -12,6 +12,11 @@ ahead of the step (counterpart of ``deepcam_tpu/data/pipeline.py``).
   records an event there, which the compute stream waits on before the
   step reads the batch.
 
+Host spans (``profiling/spans.py``): ``data.read`` around each sample's
+read on a reader thread, ``data.wait`` where the consumer blocks on the
+readers, ``data.stage`` around a batch's assembly and around its queued
+copy to the card.
+
 Ordering: like the reference loader (no sampler, shuffle=False), batches
 follow the dataset's construction-time order, and ``drop_last`` drops the
 trailing partial batch.
@@ -27,6 +32,7 @@ import numpy as np
 import torch
 
 from ..ops import native
+from ..profiling.spans import span
 
 
 class DataLoader:
@@ -60,6 +66,10 @@ class DataLoader:
             batches = [b for b in batches if len(b) == self.batch_size]
         return batches
 
+    def _read(self, index):
+        with span("data.read"):
+            return self.dataset[index]
+
     def _assemble(self, samples) -> Tuple[torch.Tensor, torch.Tensor, tuple]:
         arrays = [s[0] for s in samples]
         a0 = arrays[0]
@@ -84,17 +94,20 @@ class DataLoader:
             return
         with cf.ThreadPoolExecutor(max_workers=self.num_workers) as pool:
             pending = collections.deque(
-                [pool.submit(self.dataset.__getitem__, i) for i in b]
+                [pool.submit(self._read, i) for i in b]
                 for b in batches[:self.READ_AHEAD + 1])
             next_submit = len(pending)
             try:
                 while pending:
-                    samples = [f.result() for f in pending.popleft()]
+                    with span("data.wait"):
+                        samples = [f.result() for f in pending.popleft()]
                     if next_submit < len(batches):
-                        pending.append([pool.submit(self.dataset.__getitem__, i)
+                        pending.append([pool.submit(self._read, i)
                                         for i in batches[next_submit]])
                         next_submit += 1
-                    yield self._assemble(samples)
+                    with span("data.stage"):
+                        batch = self._assemble(samples)
+                    yield batch
             finally:
                 for futures in pending:  # a consumer that stops early
                     for f in futures:
@@ -124,13 +137,14 @@ def prefetch_to_device(iterator, device, depth: int = 2):
     held = collections.deque()       # (event, host tensors) not yet known done
 
     def put(item):
-        host = [el if not isinstance(el, torch.Tensor) or el.is_pinned() else el.pin_memory()
-                for el in item]
-        with torch.cuda.stream(copy_stream):
-            moved = tuple(el.to(device, non_blocking=True) if isinstance(el, torch.Tensor)
-                          else el for el in host)
-            event = torch.cuda.Event()
-            event.record(copy_stream)
+        with span("data.stage"):
+            host = [el if not isinstance(el, torch.Tensor) or el.is_pinned()
+                    else el.pin_memory() for el in item]
+            with torch.cuda.stream(copy_stream):
+                moved = tuple(el.to(device, non_blocking=True) if isinstance(el, torch.Tensor)
+                              else el for el in host)
+                event = torch.cuda.Event()
+                event.record(copy_stream)
         in_flight.append((moved, event))
         held.append((event, [el for el in host if isinstance(el, torch.Tensor)]))
 

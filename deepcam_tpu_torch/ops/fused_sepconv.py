@@ -50,11 +50,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import time
 from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
+from ..profiling import spans
 from .build import launch, library
 
 # Launches of each kernel wrapper since the last reset.  A wrapper adds one
@@ -502,10 +504,12 @@ class _FusedSepconv(torch.autograd.Function):
         kw = dict(a=a, b=b, skip=skip, emit_stats=emit_stats)
         counter = UNIT_COUNTERS[-1] if UNIT_COUNTERS else None
         token = counter.enter() if counter is not None else None
+        t0 = time.perf_counter_ns()
         if _device_kind(x) == "cuda":
             out = sepconv_fwd(x, dwk, pwk, pre_relu, dilation, emit_d, **kw)
         else:
             out = sepconv_fwd_plain(x, dwk, pwk, pre_relu, dilation, **kw)
+        spans.add("sepconv.fwd", time.perf_counter_ns() - t0)
         if counter is not None:
             form = form_name(a is not None, skip is not None, emit_stats)
             counter.exit(token, form, *_unit_dims(x, pwk), False)
@@ -537,10 +541,12 @@ class _FusedSepconv(torch.autograd.Function):
         kw = dict(a=a, b=b, skip=skip, gr=gr, y=y, gs1=gs1, gs2=gs2)
         counter = UNIT_COUNTERS[-1] if UNIT_COUNTERS else None
         token = counter.enter() if counter is not None else None
+        t0 = time.perf_counter_ns()
         if _device_kind(x) == "cuda":
             out = sepconv_bwd(x, gy, dwk, pwk, d, ctx.pre_relu, ctx.dilation, **kw)
         else:
             out = sepconv_bwd_plain(x, gy, dwk, pwk, d, ctx.pre_relu, ctx.dilation, **kw)
+        spans.add("sepconv.bwd", time.perf_counter_ns() - t0)
         if counter is not None:
             form = form_name(a is not None, skip is not None, ctx.emit_stats)
             counter.exit(token, form, *_unit_dims(x, pwk), True)

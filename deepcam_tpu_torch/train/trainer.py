@@ -24,6 +24,13 @@ The eval step returns this rank's (count, loss_sum, iou_sum); the CLI's
 validation (``cli/train.py:validate``) sums a whole validation's partials
 over ranks in one collective (JAX's ``psum``, which runs per call).
 Without a group both steps are the one-device steps.
+
+The train step is the root span ``step`` of ``profiling/spans.py``, which
+closes the step's entry of the span record, with the phases
+``step.forward`` (the model and the loss), ``step.backward`` (clearing the
+gradients and the backward, with DDP's overlapped all-reduce) and
+``step.optimizer`` inside it; IoU and the means over ranks are the root's
+own time.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from torch.nn.parallel import DistributedDataParallel
 from ..core.mesh import initialized_dist
 from ..ops.classify import argmax_channels
 from ..parallel.collectives import allreduce_mean_
+from ..profiling.spans import span
 from .losses import weighted_ce_loss
 from .metrics import compute_score, per_sample_iou
 
@@ -123,14 +131,17 @@ def make_train_step(class_weights: Sequence[float], fpw_1: float = 0.0,
     """
     weights = tuple(float(w) for w in class_weights)
 
-    def step_fn(state: TrainState, x: torch.Tensor, y: torch.Tensor):
+    def step(state: TrainState, x: torch.Tensor, y: torch.Tensor):
         state.model.train()
         replica = _replica(state)
-        logits = (state.model if replica is None else replica)(x, remat=remat)
-        loss = weighted_ce_loss(logits, y, weights, fpw_1, fpw_2)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        state.optimizer.step()
+        with span("step.forward"):
+            logits = (state.model if replica is None else replica)(x, remat=remat)
+            loss = weighted_ce_loss(logits, y, weights, fpw_1, fpw_2)
+        with span("step.backward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        with span("step.optimizer"):
+            state.optimizer.step()
         state.step += 1
         metrics = {"loss": loss.detach()}
         if with_iou:
@@ -143,6 +154,12 @@ def make_train_step(class_weights: Sequence[float], fpw_1: float = 0.0,
                 means = allreduce_mean_(torch.stack(list(metrics.values())))
             metrics = dict(zip(metrics, means.unbind()))
         return state, metrics
+
+    def step_fn(state: TrainState, x: torch.Tensor, y: torch.Tensor):
+        # the root span also covers the autograd graph's teardown when
+        # ``step`` returns (1-2 ms of host time a step at full width)
+        with span("step"):
+            return step(state, x, y)
 
     return step_fn
 

@@ -235,12 +235,15 @@ def test_amp_level_sets_the_compute_type(small_root, level, dtype):
 
 
 def test_bf16_run(small_root, tmp_path):
-    """One O1 step at batch 4: bf16 compute, fp32 parameters, finite loss."""
+    """One O1 step at batch 4: bf16 compute, fp32 parameters, finite loss;
+    the timings carry the step's entry of the span record."""
     out = str(tmp_path / "o")
     args = _args(small_root, out, "bf16", "--amp_opt_level", "O1", "--local_batch_size", "4",
                  "--max_epochs", "1", "--validation_frequency", "100", "--save_frequency", "0")
     res = train_loop(args, *make_datasets(args))
     assert res.metrics["step"] == 1 and res.state.model.dtype == torch.bfloat16
+    (entry,) = res.timings["span_steps"]
+    assert entry["step.n"] == 1 and entry["data.read.n"] == 4 and "step_ms" not in res.timings
     assert all(p.dtype == torch.float32 for p in res.state.model.parameters())
     losses = [r["value"] for r in parse_mllog(os.path.join(out, "logs", "bf16.log"))
               if r["key"] == "train_loss"]
