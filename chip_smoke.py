@@ -35,7 +35,13 @@ otherwise.  Phases, each printing JSON lines:
    ring stages, blocks per SM, waves).  Then the archived probe's counterpart: the row-window
    copy driven once through its entry at the probe's shape (its launch
    counted), held bit-exact to its plain version, and timed beside
-   torch.index_select.  Last, two host costs of a train step's launches:
+   torch.index_select.  Then train-mode BatchNorm's glue
+   (``ops/bn_glue.py``) at every BatchNorm width of the two models: the
+   kernels against the plain version (forward bit-exact, backward within
+   2 fp32 ulp), one launch each way, and per call the host µs of the
+   kernel wrappers, the host µs forward and backward through autograd and
+   the device µs and launches, beside the same of the PyTorch operations
+   the glue replaced.  Last, two host costs of a train step's launches:
    encoding the TMA maps, and the device guard of ``ops/build.py:launch``
    (entered only when another device is current; timed entered and not).
 4. units   — one full-resolution training step in which every one of the
@@ -465,6 +471,141 @@ def unit_bounds(form, p, c, f):
                  for d in ("fwd", "bwd"))
 
 
+# train-mode BatchNorm widths of the two models, and the count of the
+# middle flow's statistics at batch 2 (os=16)
+BN_WIDTHS = (32, 48, 64, 128, 256, 728, 1024, 1536, 2048)
+BN_COUNT = 2 * 48 * 72
+
+
+def ulp_gap(a, b):
+    """Largest distance between a and b in fp32 ulps of the larger."""
+    a, b = a.float(), b.float()
+    ulp = torch.finfo(torch.float32).eps * torch.maximum(a.abs(), b.abs()).clamp_min(
+        torch.finfo(torch.float32).tiny)
+    return ((a - b).abs() / ulp).max().item()
+
+
+def composed_bn_glue(m1, m2, weight, bias, rm, rv, n, dtype, momentum=0.1, eps=1e-5):
+    """The glue as train-mode BatchNorm composed it of PyTorch operations
+    before ``ops/bn_glue.py``: the yardstick of its times."""
+    mean, ex2 = m1 / n, m2 / n
+    var = torch.clamp_min(ex2 - mean * mean, 0.0)
+    with torch.no_grad():
+        unbiased = var * (n / max(n - 1, 1))
+        rm.copy_((1.0 - momentum) * rm + momentum * mean)
+        rv.copy_((1.0 - momentum) * rv + momentum * unbiased)
+    inv = torch.rsqrt(var + eps) * weight
+    return inv.to(dtype), (bias - mean * inv).to(dtype)
+
+
+def autograd_times(fwd, leaves, cots, reps=300):
+    """Per call of ``fwd`` (outputs differentiable in ``leaves``) and of
+    autograd's backward through it to ``leaves``: the median host µs of a
+    forward and of a backward (no synchronisation inside), and from
+    torch.profiler the device µs and device operations, forward and
+    backward."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def once():
+        return torch.autograd.grad(fwd(), leaves, cots)
+
+    for _ in range(30):
+        once()
+    torch.cuda.synchronize()
+    t_fwd, t_bwd = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter_ns()
+        outs = fwd()
+        t1 = time.perf_counter_ns()
+        torch.autograd.grad(outs, leaves, cots)
+        t_bwd.append(time.perf_counter_ns() - t1)
+        t_fwd.append(t1 - t0)
+    torch.cuda.synchronize()
+    device = {}
+    for tag, fn in (("fwd", fwd), ("fwd_bwd", once)):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        device[tag] = (sum(e.time_range.elapsed_us() for e in kernels) / reps,
+                       len(kernels) / reps)
+    return {"host_fwd_us": sorted(t_fwd)[reps // 2] / 1e3,
+            "host_bwd_us": sorted(t_bwd)[reps // 2] / 1e3,
+            "device_fwd_us": device["fwd"][0],
+            "device_bwd_us": device["fwd_bwd"][0] - device["fwd"][0],
+            "device_ops_fwd": device["fwd"][1],
+            "device_ops_bwd": device["fwd_bwd"][1] - device["fwd"][1]}
+
+
+def median_host_us(fn, reps):
+    """Median host µs of single calls of ``fn`` (no synchronisation)."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter_ns()
+        fn()
+        times.append(time.perf_counter_ns() - t0)
+    return sorted(times)[reps // 2] / 1e3
+
+
+def bn_glue_phase(bg):
+    """Train-mode BatchNorm's glue at every BatchNorm width: the kernels
+    against the plain version on the same inputs (moments as sums over
+    ``BN_COUNT``, bf16 compute), and the times of the kernel wrappers, of
+    the autograd entry and of the composed PyTorch operations."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    n, rows = BN_COUNT, []
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return scale * torch.randn(*shape, generator=gen, device=dev) + shift
+
+    for c in BN_WIDTHS:
+        m1 = rnd(c, scale=0.5) * n
+        m2 = ((m1 / n) ** 2 + rnd(c, scale=0.3, shift=1.0).abs()) * n
+        weight, bias = rnd(c, scale=0.2, shift=1.0), rnd(c, scale=0.1)
+        rm, rv = rnd(c, scale=0.1), rnd(c, scale=0.1, shift=1.0).abs()
+        ga, gb = rnd(c).bfloat16(), rnd(c).bfloat16()
+        args = (n, n, 0.1, 1e-5, True, torch.bfloat16)
+        run_k, run_p = (rm.clone(), rv.clone()), (rm.clone(), rv.clone())
+        bg.reset_launches()
+        out = bg.bn_glue_fwd(m1, m2, weight, bias, *run_k, *args)
+        ref = bg.bn_glue_fwd_plain(m1, m2, weight, bias, *run_p, *args)
+        got = bg.bn_glue_bwd(ga, gb, out[2], weight, n)
+        want = bg.bn_glue_bwd_plain(ga, gb, ref[2], weight, n)
+        torch.cuda.synchronize()
+        check(bg.LAUNCHES == {"bn_glue_fwd": 1, "bn_glue_bwd": 1},
+              f"bn_glue {c}: launches {bg.LAUNCHES}, want one each way")
+        for name, u, v in zip(("a", "b", "saved", "running_mean", "running_var"),
+                              (*out, *run_k), (*ref, *run_p)):
+            check(torch.equal(u, v), f"bn_glue {c}: the kernel's {name} differs from the plain "
+                                     "version's")
+        ulps = {name: ulp_gap(u, v) for name, u, v in
+                zip(("dweight", "dbias", "dm1", "dm2"), got, want)}
+        check(max(ulps.values()) <= 2, f"bn_glue {c}: backward {ulps} ulp from the plain version")
+
+        reps = 300
+        host_fwd = median_host_us(lambda: bg.bn_glue_fwd(m1, m2, weight, bias, *run_k, *args),
+                                  reps)
+        host_bwd = median_host_us(lambda: bg.bn_glue_bwd(ga, gb, out[2], weight, n), reps)
+        torch.cuda.synchronize()
+        leaves = [t.clone().requires_grad_() for t in (m1, m2, weight, bias)]
+        times = {
+            "glue": autograd_times(lambda: bg.bn_glue(*leaves, *run_k, div=n, count=n,
+                                                      momentum=0.1, eps=1e-5, update=True,
+                                                      dtype=torch.bfloat16),
+                                   leaves, (ga, gb), reps),
+            "composed": autograd_times(lambda: composed_bn_glue(*leaves, *run_p, n,
+                                                                torch.bfloat16),
+                                       leaves, (ga, gb), reps)}
+        row = {"c": c, "count": n, "bwd_ulps": ulps,
+               "wrapper_host_fwd_us": host_fwd, "wrapper_host_bwd_us": host_bwd, **times}
+        emit({"phase": "bn_glue", **row})
+        rows.append(row)
+    return rows
+
+
 def rel_err(a, b):
     """max |a − b| over max |b|, in fp32 on a's device."""
     a, b = a.detach().float(), b.detach().float().to(a.device)
@@ -521,10 +662,10 @@ def launch_guard_us(build, reps=20000, rounds=3):
 
     def guarded():
         with torch.cuda.device(dev):
-            noop(1, 2, torch.cuda.current_stream(dev).cuda_stream)
+            noop(1, 2, torch._C._cuda_getCurrentRawStream(dev.index))
 
     def bare():
-        noop(1, 2, torch.cuda.current_stream(dev).cuda_stream)
+        noop(1, 2, torch._C._cuda_getCurrentRawStream(dev.index))
 
     def as_run():
         build.launch("noop", noop, dev, 1, 2)
@@ -2622,6 +2763,7 @@ def main():
         from deepcam_tpu_torch.models import layers
         from deepcam_tpu_torch.models.deeplab import DeepLabv3plus
         from deepcam_tpu_torch.models.xception import XceptionBlock
+        from deepcam_tpu_torch.ops import bn_glue as bg
         from deepcam_tpu_torch.ops import build
         from deepcam_tpu_torch.ops import fused_sepconv as fs
         from deepcam_tpu_torch.train.losses import (
@@ -2655,6 +2797,7 @@ def main():
     # 3. every form against its plain version, and the probe's counterpart
     rows, splits = kernel_phase(fs)
     probe = probe_phase(pw)
+    bn_rows = bn_glue_phase(bg)
     # host cost of the kernels' TMA maps: one per forward, four per backward
     map_us = fs.map_encode_us(torch.empty(8 << 20, dtype=torch.uint8, device="cuda"))
     emit({"phase": "tensor_maps", "encode_us_per_map": map_us,
@@ -2838,6 +2981,10 @@ def main():
                                  **{tag: run["launches"][kname]
                                     for tag, run in cli["runs"].items()}}})
     kernels.append(probe)
+    kernels.append({"name": "bn_glue", "route": "cuda",
+                    "source": "deepcam_tpu_torch/ops/csrc/bn_glue.cu",
+                    "replaces": "none (XLA fuses the glue on the TPU)",
+                    "bound_by": "launch latency", "widths": bn_rows})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

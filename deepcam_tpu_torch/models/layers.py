@@ -30,6 +30,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from ..ops.bn_glue import bn_glue
 from ..ops.fused_sepconv import (
     fused_sepconv,
     fused_sepconv_affine,
@@ -329,8 +330,12 @@ class BatchNorm2d(nn.Module):
       its factor.  The running statistics are updated IN PLACE (momentum
       0.1, torch convention, unbiased running variance), except in the
       replay of a rematerialized forward, so once per step — the JAX module
-      returns them as a new ``batch_stats`` tree instead.
-    * Eval mode: the running statistics.
+      returns them as a new ``batch_stats`` tree instead.  Everything from
+      the moments to ``(a, b)`` and the running statistics is one autograd
+      function, ``ops/bn_glue.py``: one kernel launch forward and one
+      backward on the card.
+    * Eval mode: the running statistics, through PyTorch operations: the
+      glue's kernels serve train mode, whose every step pays its launches.
     * The apply is ``x*a + b`` in ``dtype`` with a = γ/σ and b = β − μ·a
       computed in fp32 — written out, because ``F.batch_norm`` rounds at
       other places.  ``relu=True`` fuses the following ReLU; ``fold=True``
@@ -351,29 +356,27 @@ class BatchNorm2d(nn.Module):
                 stats=None):
         if self.training:
             n = x.shape[0] * x.shape[2] * x.shape[3]
-            if stats is not None:
-                s1, s2 = stats
-                mean, ex2 = s1 / n, s2 / n
+            if stats is not None:  # sums over the n values of each channel
+                m1, m2 = stats
+                div = n
             else:
                 x32 = x.float()
-                mean = x32.mean(dim=(0, 2, 3))
-                ex2 = (x32 * x32).mean(dim=(0, 2, 3))
+                m1 = x32.mean(dim=(0, 2, 3))
+                m2 = (x32 * x32).mean(dim=(0, 2, 3))
+                div = 1
             sync = spatial.stats_group()
             if sync is not None:  # the statistics of the ranks that share the batch
-                mean, ex2 = sync.mean(torch.stack([mean, ex2])).unbind(0)
-                n = n * sync.count
-            var = torch.clamp_min(ex2 - mean * mean, 0.0)
-            if not recomputing():
-                with torch.no_grad():
-                    m = self.momentum
-                    unbiased = var * (n / max(n - 1, 1))
-                    self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
-                    self.running_var.copy_((1.0 - m) * self.running_var + m * unbiased)
+                if div != 1:
+                    m1, m2 = m1 / div, m2 / div
+                m1, m2 = sync.mean(torch.stack([m1, m2])).unbind(0)
+                div, n = 1, n * sync.count
+            a, b = bn_glue(m1, m2, self.weight, self.bias, self.running_mean,
+                           self.running_var, div=div, count=n, momentum=self.momentum,
+                           eps=self.eps, update=not recomputing(), dtype=self.dtype)
         else:
-            mean, var = self.running_mean, self.running_var
-        inv = torch.rsqrt(var + self.eps) * self.weight
-        a = inv.to(self.dtype)
-        b = (self.bias - mean * inv).to(self.dtype)
+            inv = torch.rsqrt(self.running_var + self.eps) * self.weight
+            a = inv.to(self.dtype)
+            b = (self.bias - self.running_mean * inv).to(self.dtype)
         if fold:
             return a, b
         y = x.to(self.dtype) * a[:, None, None] + b[:, None, None]

@@ -20,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
-SOURCES = ("sepconv_fwd", "sepconv_bwd", "row_windows")
+SOURCES = ("sepconv_fwd", "sepconv_bwd", "row_windows", "bn_glue")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -87,11 +87,17 @@ def launch(name: str, fn, device, *args) -> None:
     device was never set would launch onto device 0 with device-1 pointers.
     The device guard is entered only when ``device`` is not already the
     current one, which spares its host cost on every launch of a process
-    that set its device.  Raises on a nonzero CUDA error code."""
+    that set its device.  The stream is read as the raw handle
+    (``torch._C._cuda_getCurrentRawStream``, what PyTorch's own generated
+    kernels launch on): ``torch.cuda.current_stream`` builds a Stream
+    object, a third of a small launch's host time on an H100's host.
+    Raises on a nonzero CUDA error code."""
     import torch
 
-    stream = torch.cuda.current_stream(device).cuda_stream
-    if device.index == torch.cuda.current_device():
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == current:
         rc = fn(*args, stream)
     else:
         with torch.cuda.device(device):

@@ -37,6 +37,11 @@ The spans and what they cover:
                     wrapper (checks, plan, allocations, tensor-map
                     encoding, the ctypes launch), on the CPU the plain
                     version
+``bn.fwd``          (``add``) train-mode BatchNorm's glue call from its
+``bn.bwd``          autograd function, forward and backward,
+                    ``ops/bn_glue.py``: on the card the kernel wrapper
+                    (checks, allocations, the ctypes launch), on the CPU
+                    the plain version
 
 This module imports only torch and the standard library, so that any
 module of the port can import it.

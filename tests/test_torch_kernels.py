@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from deepcam_tpu_torch.analysis import probe_element_window as pw
+from deepcam_tpu_torch.ops import bn_glue as bg
 from deepcam_tpu_torch.ops import fused_sepconv as fs
 
 
@@ -391,13 +392,10 @@ def test_launches_run_on_the_tensors_device(monkeypatch):
         def __exit__(self, *exc):
             events.append(("exit", self.device))
 
-    class Stream:
-        def __init__(self, device):
-            self.cuda_stream = 1000 + device.index
-
     current = [0]
     monkeypatch.setattr(torch.cuda, "device", Guard)
-    monkeypatch.setattr(torch.cuda, "current_stream", Stream)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 1000 + index,
+                        raising=False)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: current[0])
     dev = torch.device("cuda", 1)
 
@@ -414,7 +412,8 @@ def test_launches_run_on_the_tensors_device(monkeypatch):
     with pytest.raises(RuntimeError, match="k launch failed: CUDA error 700"):
         build.launch("k", lambda *args: 700, dev)
     for fn, name in ((fs.sepconv_fwd, "sepconv_fwd"), (fs.sepconv_bwd, "sepconv_bwd"),
-                     (pw.row_windows_kernel, "row_windows")):
+                     (pw.row_windows_kernel, "row_windows"), (bg.bn_glue_fwd, "bn_glue_fwd"),
+                     (bg.bn_glue_bwd, "bn_glue_bwd")):
         src = inspect.getsource(fn)
         assert f'launch("{name}", ' in src and "cuda_stream" not in src, name
 

@@ -6,7 +6,7 @@ a few steps through ``DataLoader``, ``prefetch_to_device`` and
 ``make_train_step``; the record must hold one entry per step, phases
 inside the root, the root inside an outside clock, every reader-thread
 read counted, and ranges in a profiler's trace only while it records.
-The seven per-layer readers run through a small ``benchmark.cell.run_rank``
+The eight per-layer readers run through a small ``benchmark.cell.run_rank``
 in a fresh interpreter (this one has JAX loaded, which a benchmark run
 refuses).
 """
@@ -36,7 +36,7 @@ BATCH, STEPS = 2, 5
 PHASES = ("step.forward", "step.backward", "step.optimizer")
 LOOP_ONLY = ("data.reader_wait_ms", "data.stage_ms", "data.read_ms")
 ANY_ENTRY = ("train_step.forward_host_ms", "train_step.backward_host_ms",
-             "train_step.optimizer_host_ms", "sepconv.launch_host_ms")
+             "train_step.optimizer_host_ms", "sepconv.launch_host_ms", "bn.launch_host_ms")
 
 
 class _Samples:
@@ -268,7 +268,7 @@ print("METRICS", json.dumps({{k: v["value"] for k, v in r["metrics"].items()}}))
     ("os16-loop-b2", {"samples_per_rank": 4, "max_steps": 64}),
     ("os8-step-b4", {"resident_batches": 2})])
 def test_readers_in_a_traced_run(cell, traffic):
-    """The seven readers in a small traced run of each entry: positive in
+    """The eight readers in a small traced run of each entry: positive in
     the loop; in the step entry, whose feed has no pipeline, the three
     ``data.*`` left out; the phases inside the benchmark's own span."""
     proc = subprocess.run(
