@@ -12,9 +12,9 @@ each side against the fp32 reference:
   convolution, one step of precision below the configuration's bf16;
 * ``bf16``: the reference with bf16 operands, a witness of what the
   program's precision alone moves;
-* the faults of ``faults.py``, planted in the program: ``half_batch``,
-  ``grad_scaled``, ``dpw_scaled``, ``dx_scaled`` and, on more than one
-  card, ``no_exchange``.
+* the faults of ``faults.py`` that the configuration's family lists
+  (``families/<family>.py:faults``), planted in the program, and, on more
+  than one card, ``no_exchange``.
 
 Each side's numbers are judged with the workload's limits, as a run judges
 them, and its line says whether it came out ``correct``.  A state left
@@ -88,20 +88,19 @@ def calibrate_rank(cell: str, seeds, rank: int, world: int, program_only: bool,
                    dump) -> None:
     from benchmark import cell as C
     from benchmark import check
-    from benchmark.reference.model import bf16, fp8_e4m3
+    from benchmark.reference.quant import bf16, fp8_e4m3
     from deepcam_tpu_torch.core.mesh import destroy_distributed, device_for, init_distributed
 
     device = device_for("cuda")
     created = init_distributed("auto", "cuda") if world > 1 else False
-    faults = [] if program_only else ["half_batch", "grad_scaled", "dpw_scaled", "dx_scaled"]
-    if world > 1 and not program_only:
-        faults.append("no_exchange")
     keep = dump is not None and rank == 0
     try:
         for seed in seeds:
             t0 = time.time()
             run = C.Run(cell, seed, rank, world, device)
             limits = run.wl.get("limits", {})
+            faults = [] if program_only else run.family.faults(run.cfg) + (
+                ["no_exchange"] if world > 1 else [])
             sides = {"program": program_side(run, keep=keep)}
             for fault in faults:
                 sides[fault] = program_side(run, fault, keep)

@@ -1,11 +1,11 @@
 """One run of one cell on one rank: set-up, the three compared steps, the
 measured window, the traced capture, and the reference check.
 
-Set-up builds the program's train state once (the port's
-``DeepLabv3plus`` on the meta device, its storage on the card, the
-benchmark's weights loaded into it; LAMB; ``make_train_step``), drives it
-through the window's own feed and step for the three compared steps,
-warms up, and hands the same state to the window.  The window runs a fixed
+Set-up builds the program's train state once (the port's model as the
+configuration's family builds it, its storage on the card, the benchmark's
+weights loaded into it; the workload's optimizer; ``make_train_step``),
+drives it through the window's own feed and step for the three compared
+steps, warms up, and hands the same state to the window.  The window runs a fixed
 number of steps, worked out from the warm-up so that it lasts about
 ``--seconds``; a CUDA event on the compute stream marks each step boundary.
 With ``--trace 1`` the last ``capture_steps`` steps run under
@@ -27,8 +27,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from . import check, spec, trace
-from .reference import arch
-from .reference.model import identity
+from .reference.quant import identity
 from .reference.train import full_fp32, run_steps
 from .traffic import make_sample, normalize, stats
 from .weights import make_weights
@@ -50,6 +49,7 @@ class Run:
             else:
                 self.wl[key] = value
         self.cfg = self.wl["cfg"]
+        self.family = spec.config_family(self.cfg)
         self.entry = importlib.import_module(f"benchmark.entries.{self.wl['entry']}")
         self.device = device
 
@@ -66,18 +66,13 @@ def forbidden_modules() -> list:
 
 def build_program(run: Run):
     """(state, step_fn) of the port, with the benchmark's weights."""
-    from deepcam_tpu_torch.models.deeplab import DeepLabv3plus
     from deepcam_tpu_torch.train.losses import FPW_1, FPW_2, class_weights
     from deepcam_tpu_torch.train.optim import build_optimizer
     from deepcam_tpu_torch.train.schedule import get_lr_schedule
     from deepcam_tpu_torch.train.trainer import create_train_state, make_train_step
 
     cfg, opt = run.cfg, run.wl["optimizer"]
-    with torch.device("meta"):
-        model = DeepLabv3plus(cfg["n_classes"], cfg["output_stride"],
-                              decoder=cfg["decoder"], in_ch=cfg["in_channels"],
-                              dtype=getattr(torch, cfg["compute_dtype"]), device="meta")
-    model = model.to_empty(device=run.device)
+    model = run.family.build(cfg, run.device)
     weights = make_weights(cfg, run.seed, run.device)
     model.load_state_dict(weights)
     del weights
@@ -96,8 +91,9 @@ def _norms(tensors) -> list:
 def compared_steps(run: Run, state, step_fn: Callable, feed, keep: bool = False) -> dict:
     """The program's first ``COMPARED_STEPS`` steps through ``feed`` and
     ``step_fn``, and its readings (see ``check``).  The first gradient is
-    the one LAMB received, before its clip: the step clears the gradients
-    before its backward, so after the first step they are still held.
+    the one the optimizer received, before any clip: the step clears the
+    gradients before its backward, so after the first step they are still
+    held.
     ``keep`` also keeps that gradient's tensors, on the host
     (``grad1_t``)."""
     names = [n for n, _ in state.model.named_parameters()]
@@ -115,7 +111,7 @@ def compared_steps(run: Run, state, step_fn: Callable, feed, keep: bool = False)
                                   zip(names, params)}
             out["bn"] = {n: b.detach().to("cpu", copy=True)
                          for n, b in state.model.named_buffers()
-                         if arch.is_buffer(n)}
+                         if run.family.is_buffer(n)}
     with torch.no_grad():
         w0 = make_weights(run.cfg, run.seed, run.device)
         out["delta"] = dict(zip(names, _norms(
@@ -148,11 +144,10 @@ def reference_batches(run: Run):
 def reference_readings(run: Run, quant: Callable = identity, keep: bool = False) -> dict:
     """The reference's readings over the same steps (``quant``: the
     control, see ``calibrate.py``; ``keep`` as in ``compared_steps``)."""
-    opt = run.wl["optimizer"]
     w = make_weights(run.cfg, run.seed, run.device)
     batches = reference_batches(run)
     with full_fp32():
-        res = run_steps(run.cfg, w, batches, opt["lr"], opt["weight_decay"], quant)
+        res = run_steps(run.cfg, w, batches, run.wl["optimizer"], quant)
     names = sorted(res["grad1"])
     bufs = sorted(res["buffers1"])
     out = {"loss": res["loss"], "iou": res["iou"],
@@ -191,25 +186,25 @@ def conv_backward_flops(grad_out_shape, x_shape, w_shape, _bias, _stride, _paddi
 
 def flops_per_sample(cfg: dict) -> float:
     """FLOPs of one sample's forward and backward (no recompute), counted by
-    ``FlopCounterMode`` on the reference model at the configuration's
+    ``FlopCounterMode`` on the family's plain forward at the configuration's
     shapes, on the meta device, with ``conv_backward_flops`` for the
     backward's convolutions."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    from .reference.model import forward
     from .reference.train import weighted_ce
 
+    fam = spec.config_family(cfg)
     h, w = cfg["image_size"]
     with torch.device("meta"):
-        params = {n: torch.empty(shape, requires_grad=not arch.is_buffer(n))
-                  for n, shape, _ in arch.param_specs(cfg)}
+        params = {n: torch.empty(shape, requires_grad=not fam.is_buffer(n))
+                  for n, shape, _ in fam.param_specs(cfg)}
         x = torch.empty((1, h, w, cfg["in_channels"]))
         y = torch.zeros((1, h, w), dtype=torch.int64)
         counter = FlopCounterMode(
             display=False,
             custom_mapping={torch.ops.aten.convolution_backward: conv_backward_flops})
         with counter:
-            loss = weighted_ce(forward(cfg, params, x), y)
+            loss = weighted_ce(fam.forward(cfg, params, x), y)
             loss.backward()
     return float(counter.get_total_flops())
 
@@ -346,14 +341,16 @@ def measure(run: Run, state, step_fn, feed, n_steps: int, traced: bool, t0: floa
 
 def layer_context(run: Run, meas: dict) -> dict:
     """What the metric readers read: the host spans of the uncaptured
-    steps, their rate, the FLOPs per sample, and the capture's device rows
-    and window (see ``metrics/``)."""
+    steps, their step times (this rank's CUDA-event intervals) and rate,
+    the FLOPs per sample, and the capture's device rows and window (see
+    ``metrics/``)."""
     cap = trace.read_capture(meas.pop("events"), meas.pop("calls"))
     k = run.wl["capture_steps"]
     b = run.wl["local_batch"]
-    units = arch.sepconv_units(run.cfg, b)
+    units = run.family.units(run.cfg, b)
     return {"entry": run.wl["entry"], "world": run.world, "capture_steps": k,
             "data_wait_s": meas["waits"], "step_host_s": meas["hosts"],
+            "step_ms": meas["step_ms"][:meas["steps"] - k],
             "samples_per_s_per_gpu": (meas["steps"] - k) * b / meas["uncaptured_s"],
             "flops_per_sample": flops_per_sample(run.cfg), "units": units,
             "rows": cap["rows"], "window": cap["window"], "capture": cap}

@@ -46,8 +46,13 @@ convolution's weight, whose bf16 gradient carries the input's mean of
 ~0.5 times the rounding that train-mode BN's backward leaves in each
 channel's mean) and ``bn_worst`` (the worst BN statistic).
 
-Each number has its own limit, in the workload file (``limits``); a number
-without a limit there is printed and not held.
+The tensors that ``grad_head``, ``grad_units`` and ``bn_input`` single out
+are the configuration's family's ``layout`` (``families/<family>.py``); a
+number whose tensors the family does not give (an empty list, or a model
+without BN for ``bn_stats``) is not computed.  Each number has its own
+limit, in the workload file (``limits``); a number without a limit there
+is printed and not held, and a limit whose number the run did not produce
+fails the run.
 """
 
 from __future__ import annotations
@@ -56,7 +61,7 @@ import math
 import statistics
 from typing import Dict, List
 
-from .reference import arch
+from . import spec
 
 NUMBERS = ("loss", "iou", "grad", "grad_head", "grad_units", "update", "bn_stats",
            "bn_input")
@@ -80,7 +85,7 @@ def _gaps(prog: Dict[str, float], ref: Dict[str, float], keys: List[str]) -> Lis
 
 
 def _worst_gap(prog: Dict[str, float], ref: Dict[str, float], keys: List[str]) -> float:
-    return _largest(_gaps(prog, ref, keys)) if keys else 0.0
+    return _largest(_gaps(prog, ref, keys))
 
 
 def _median(gaps: List[float]) -> float:
@@ -99,47 +104,38 @@ def _bn_gaps(prog: dict, ref: dict) -> List[float]:
             / max(norms[k], med, 1e-30) for k in keys]
 
 
-def layout(cfg: dict) -> dict:
-    """The tensors that the numbers single out, by the model's order:
-    ``head``, the parameters after the last BN; ``units``, each (depthwise,
-    pointwise) weight pair of a separable convolution; ``input_bn``, the
-    first BN's two running statistics."""
-    specs = [(n, shape) for n, shape, _ in arch.param_specs(cfg)]
-    last_bn = max(i for i, (n, _) in enumerate(specs) if arch.is_buffer(n))
-    head = [n for n, _ in specs[last_bn + 1:]]
-    params = [(n, shape) for n, shape in specs if not arch.is_buffer(n)]
-    units = [(d, p) for (d, ds), (p, ps) in zip(params, params[1:])
-             if len(ds) == 4 and ds[1] == 1 and len(ps) == 4 and tuple(ps[2:]) == (1, 1)]
-    return {"head": head, "units": units,
-            "input_bn": [n for n, _ in specs if arch.is_buffer(n)][:2]}
-
-
 def numbers(prog: dict, ref: dict, cfg: dict) -> Dict[str, float]:
     """The compared numbers of two sides' readings (see the module
-    docstring); ``ref`` is the reference's."""
-    lay = layout(cfg)
+    docstring); ``ref`` is the reference's.  Only those whose tensors the
+    family's layout gives."""
+    lay = spec.config_family(cfg).layout(cfg)
     g_p, g_r = prog["grad1"], ref["grad1"]
     grad_keys = sorted(g_r)
     med_grad = statistics.median(g_r[k] for k in grad_keys)
     moved = [k for k in grad_keys if g_r[k] >= SMALL_GRAD * med_grad]
-    bn = _bn_gaps(prog, ref)
-    bn_in = [float((prog[BUFFERS][k].double() - ref[BUFFERS][k].double()).norm())
-             / max(float(ref[BUFFERS][k].double().norm()), 1e-30) for k in lay["input_bn"]]
-    units = [abs((g_p[p] / max(g_p[d], 1e-30)) / (g_r[p] / g_r[d]) - 1.0)
-             for d, p in lay["units"]]
-    return {
+    out = {
         "loss": _largest(abs(p - r) / abs(r) for p, r in zip(prog["loss"], ref["loss"])),
         "iou": _largest(abs(p - r) for p, r in zip(prog["iou"], ref["iou"])),
-        "grad_head": _largest(abs(g_p[k] - g_r[k]) / max(g_r[k], med_grad, 1e-30)
-                              for k in lay["head"]),
-        "grad_units": _median(units),
-        "update": _worst_gap(prog["delta"], ref["delta"], moved),
-        "bn_stats": _median(bn),
-        "bn_input": _largest(bn_in),
         "grad": _median_gap(g_p, g_r, grad_keys),
         "grad_worst": _worst_gap(g_p, g_r, grad_keys),
-        "bn_worst": _largest(bn),
     }
+    if lay["head"]:
+        out["grad_head"] = _largest(abs(g_p[k] - g_r[k]) / max(g_r[k], med_grad, 1e-30)
+                                    for k in lay["head"])
+    if lay["units"]:
+        out["grad_units"] = _median([abs((g_p[p] / max(g_p[d], 1e-30)) / (g_r[p] / g_r[d])
+                                         - 1.0) for d, p in lay["units"]])
+    if moved:
+        out["update"] = _worst_gap(prog["delta"], ref["delta"], moved)
+    if ref[BUFFERS]:
+        bn = _bn_gaps(prog, ref)
+        out["bn_stats"] = _median(bn)
+        out["bn_worst"] = _largest(bn)
+    if lay["input_bn"]:
+        out["bn_input"] = _largest(
+            float((prog[BUFFERS][k].double() - ref[BUFFERS][k].double()).norm())
+            / max(float(ref[BUFFERS][k].double().norm()), 1e-30) for k in lay["input_bn"])
+    return out
 
 
 def worst(prog: dict, ref: dict, key: str, n: int = 5) -> List[tuple]:
@@ -158,9 +154,14 @@ def worst(prog: dict, ref: dict, key: str, n: int = 5) -> List[tuple]:
 def judge(nums: Dict[str, float], limits: Dict[str, float]) -> Dict[str, dict]:
     """{name: {"value", "limit"}} in ``NUMBERS`` order, then the readings
     that are printed and not held; a number with no limit carries ``None``
-    as its limit."""
-    return {k: {"value": nums[k], "limit": limits.get(k)} for k in NUMBERS + PRINTED}
+    as its limit, and a limit whose number was not produced carries
+    ``None`` as its value."""
+    out = {k: {"value": nums[k], "limit": limits.get(k)} for k in NUMBERS + PRINTED
+           if k in nums}
+    out.update({k: {"value": None, "limit": v} for k, v in limits.items() if k not in nums})
+    return out
 
 
 def passed(checks: Dict[str, dict]) -> bool:
-    return all(c["limit"] is None or c["value"] <= c["limit"] for c in checks.values())
+    return all(c["limit"] is None or (c["value"] is not None and c["value"] <= c["limit"])
+               for c in checks.values())

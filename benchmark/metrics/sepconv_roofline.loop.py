@@ -1,0 +1,6 @@
+"""``sepconv_roofline`` in the loop cells, which carry no end-to-end rate (see
+``samples_per_s_per_gpu.loop``): the same reader, under a name of its own."""
+
+from benchmark import spec
+
+read = spec.metric_module("sepconv_roofline").read

@@ -1,7 +1,7 @@
 """The fused separable units' share of their roofline: the least time of
 the forward and backward of every stride-1 separable unit of the cell
-(the frozen ``unit_counts``/``unit_bounds`` on the units the configuration
-gives, ``reference/arch.py:sepconv_units``), over the device time of the
+(the frozen ``unit_counts``/``unit_bounds`` on the units the configuration's
+family gives, ``families/<family>.py:units``), over the device time of the
 captured steps that the frozen module scopes place in those units.  Scoped
 by module, not by kernel name, so it reads the same work whatever
 implements it."""

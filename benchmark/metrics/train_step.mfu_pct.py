@@ -1,7 +1,7 @@
 """The whole step's share of one H100's dense bf16 peak (989 TFLOP/s, 700 W
 data sheet): FLOPs per sample of forward and backward without recompute
-(``FlopCounterMode`` on the benchmark's reference model at the cell's
-shapes) times the samples per second per card of the window's uncaptured
+(``FlopCounterMode`` on the plain forward of the configuration's family at
+the cell's shapes) times the samples per second per card of the window's uncaptured
 steps."""
 
 PEAK_FLOPS = 989e12

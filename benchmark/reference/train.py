@@ -1,13 +1,15 @@
 """The plain reference of a training step: weighted cross-entropy, the train
-IoU, LAMB (apex FusedLAMB at its defaults: global-norm clip at 1.0, then
-``optax.lamb``'s math) and data parallelism over R ranks, in fp32.
+IoU, the workload's optimizer and data parallelism over R ranks, in fp32,
+over the plain forward of the configuration's family
+(``families/<family>.py``).  The optimizers: LAMB (apex FusedLAMB at its
+defaults: global-norm clip at 1.0, then ``optax.lamb``'s math) and AdamW
+(``optax.adamw``, no clip).
 
 ``run_steps`` follows the program's first steps from the same weights on
 the same batches and returns what the comparison reads: each step's loss
-and IoU, the first step's gradient (before the clip) and BN running
-statistics, and
-the parameters after the last step.  Nothing here imports the
-program.
+and IoU, the first step's gradient (before any clip) and BN running
+statistics, and the parameters after the last step.  Nothing here imports
+the program.
 """
 
 from __future__ import annotations
@@ -18,8 +20,8 @@ from typing import Callable, Dict, Sequence
 
 import torch
 
-from . import arch
-from .model import forward, identity
+from .. import spec
+from .quant import identity
 
 # the reference's class pixel frequencies (mlcommons/hpc deepcam), raised
 # to the loss-weight power -0.125
@@ -99,24 +101,61 @@ class Lamb:
             p.sub_(self.lr * ratio * u)
 
 
+class AdamW:
+    """AdamW over a dict of fp32 parameters, one tensor at a time: the math
+    of ``optax.adamw`` (b1 0.9, b2 0.999, eps added to sqrt(v̂), bias
+    corrections, decoupled decay lr·wd·p on every tensor, no clip)."""
+
+    def __init__(self, params: Dict[str, torch.Tensor], lr: float, weight_decay: float,
+                 eps: float = EPS):
+        self.lr, self.wd, self.eps, self.t = lr, weight_decay, eps, 0
+        self.m = {k: torch.zeros_like(v) for k, v in params.items()}
+        self.v = {k: torch.zeros_like(v) for k, v in params.items()}
+
+    @torch.no_grad()
+    def step(self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor]):
+        """Updates ``params`` in place."""
+        self.t += 1
+        b1, b2 = BETAS
+        for k, p in params.items():
+            g = grads[k]
+            self.m[k].mul_(b1).add_(g, alpha=1 - b1)
+            self.v[k].mul_(b2).add_(g * g, alpha=1 - b2)
+            u = (self.m[k] / (1 - b1 ** self.t)) / ((self.v[k] / (1 - b2 ** self.t)).sqrt()
+                                                   + self.eps)
+            p.sub_(self.lr * (u + self.wd * p))
+
+
+def optimizer(opt: dict, params: Dict[str, torch.Tensor]):
+    """The reference of the workload's ``optimizer`` (its ``name``, ``lr``,
+    ``weight_decay`` and ``eps``)."""
+    if opt["name"] == "LAMB":
+        return Lamb(params, opt["lr"], opt["weight_decay"])
+    if opt["name"] == "AdamW":
+        return AdamW(params, opt["lr"], opt["weight_decay"], opt["eps"])
+    raise ValueError(f"the reference has no optimizer {opt['name']!r}")
+
+
 def run_steps(cfg: dict, weights: Dict[str, torch.Tensor],
-              batches: Sequence[Sequence[tuple]], lr: float, weight_decay: float,
+              batches: Sequence[Sequence[tuple]], opt: dict,
               quant: Callable = identity) -> dict:
-    """The reference's training steps.  ``weights``: every tensor of
-    ``arch.param_specs`` (fp32, on the device it runs on; not modified).
+    """The reference's training steps.  ``weights``: every tensor of the
+    family's ``param_specs`` (fp32, on the device it runs on; not
+    modified); ``opt``: the workload's ``optimizer``.
     ``batches[s][r]``: rank r's (x NHWC fp32, labels) at step s; the
     gradients are averaged over ranks, each rank's BN uses its own batch
     statistics, and the running statistics are the mean of the ranks'
     updates.  Returns {"loss": [...], "iou": [...], "grad1": {name: g},
     "buffers1": {...}, "params": {...}}: the loss and IoU of each step
-    averaged over ranks, the first step's gradient as LAMB receives it
-    (averaged over ranks, before the clip) and running statistics, and the
-    last step's parameters."""
+    averaged over ranks, the first step's gradient as the optimizer
+    receives it (averaged over ranks, before any clip) and running
+    statistics, and the last step's parameters."""
+    fam = spec.config_family(cfg)
     n_cls = cfg["n_classes"]
     params = {k: v.detach().clone().requires_grad_(True) for k, v in weights.items()
-              if not arch.is_buffer(k)}
-    buffers = {k: v.detach().clone() for k, v in weights.items() if arch.is_buffer(k)}
-    opt = Lamb(params, lr, weight_decay)
+              if not fam.is_buffer(k)}
+    buffers = {k: v.detach().clone() for k, v in weights.items() if fam.is_buffer(k)}
+    update = optimizer(opt, params)
     out = {"loss": [], "iou": [], "grad1": None}
     for step in batches:
         grads = {k: torch.zeros_like(v) for k, v in params.items()}
@@ -124,7 +163,7 @@ def run_steps(cfg: dict, weights: Dict[str, torch.Tensor],
         losses, ious = [], []
         for x, y in step:
             stats: dict = {}
-            logits = forward(cfg, params, x, quant, stats)
+            logits = fam.forward(cfg, params, x, quant, stats)
             loss = weighted_ce(logits, y)
             g = torch.autograd.grad(loss, list(params.values()))
             with torch.no_grad():
@@ -138,7 +177,7 @@ def run_steps(cfg: dict, weights: Dict[str, torch.Tensor],
             del logits, loss, g
         if out["grad1"] is None:
             out["grad1"] = {k: v.clone() for k, v in grads.items()}
-        opt.step(params, grads)
+        update.step(params, grads)
         with torch.no_grad():
             for k in buffers:
                 buffers[k].mul_(1 - MOMENTUM).add_(MOMENTUM * means[k])

@@ -90,10 +90,11 @@ def launch_ranks(script: Path, argv: list, world: int) -> int:
 
 def print_result(result: dict) -> None:
     """The compared numbers beside their limits as the last lines of
-    standard error, then the result as the last line of standard
-    output."""
+    standard error (a limit whose number the run did not produce as "not
+    produced"), then the result as the last line of standard output."""
     for name, c in result["checks"].items():
-        print(f"check {name}: {c['value']!r} limit {c['limit']!r}", file=sys.stderr)
+        value = "not produced" if c["value"] is None else repr(c["value"])
+        print(f"check {name}: {value} limit {c['limit']!r}", file=sys.stderr)
     sys.stderr.flush()
     print(json.dumps(result), flush=True)
 

@@ -24,7 +24,7 @@ REPO = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(REPO))
 
 from benchmark import cell as C  # noqa: E402
-from benchmark import check, faults  # noqa: E402
+from benchmark import check, faults, spec  # noqa: E402
 
 # small-size limits: sound fp32 runs read grad <= 0.012, grad_head <= 1e-5,
 # grad_units <= 9e-4, update <= 0.03, bn_stats <= 1e-5 and bn_input <=
@@ -47,6 +47,20 @@ def small_run(cell: str = "os16-loop-b2", world: int = 1) -> dict:
 def test_sound_run_is_correct():
     result = small_run()
     assert result["correct"], result["checks"]
+    assert set(result["metrics"]) == {"peak_mem_gib", "setup_s"}  # the loop holds no rate
+
+
+def test_a_traced_loop_run_reads_the_loop_rate():
+    """The loop cell's per-layer line: its rate and step time among the
+    metrics its manifest entries give it, and nothing else."""
+    result = C.run_rank("os16-loop-b2", SEED, 0.1, True, 0, 1, time.time(), device="cpu",
+                        overrides=OVERRIDES)
+    assert result["correct"], result["checks"]
+    got = {k: v["value"] for k, v in result["metrics"].items()}
+    assert got["samples_per_s_per_gpu.loop"] > 0 and got["step_ms_p90.loop"] > 0, got
+    listed = {m["name"] for m in spec.cell_metrics(spec.manifest(), "os16-loop-b2",
+                                                    "per_layer")}
+    assert set(got) <= listed and "samples_per_s_per_gpu" not in got
 
 
 def test_unchanged_state_fails():
@@ -79,7 +93,7 @@ def test_scaled_gradients_fail(fault):
 def test_control_fails():
     """The reference in fp8 put in the program's place fails a number that
     the program passes."""
-    from benchmark.reference.model import fp8_e4m3
+    from benchmark.reference.quant import fp8_e4m3
 
     run = C.Run("os16-loop-b2", SEED, 0, 1, torch.device("cpu"), OVERRIDES)
     ref = C.reference_readings(run)

@@ -59,7 +59,57 @@ def test_every_file_is_found_by_name():
         assert w["traffic"] == w["name"]
     for m in MAN["per_layer"]:
         assert callable(spec.metric_module(m["name"]).read)
+    for c in MAN["configs"]:
+        fam = spec.config_family(spec.config(c["name"]))
+        assert all(callable(getattr(fam, f)) for f in (
+            "param_specs", "is_buffer", "forward", "build", "layout", "units", "faults"))
     assert sorted(w["name"] for w in MAN["workloads"]) == spec.workload_names()
+
+
+def test_each_cell_reports_what_its_per_layer_metrics_move():
+    """Every cell reports ``setup_s``, one more end-to-end metric and a
+    per-layer one, and the end-to-end metric that each of its per-layer
+    metrics moves; every ``workloads`` list names cells of the manifest."""
+    cells = {w["name"] for w in MAN["workloads"]}
+    for c in cells:
+        ends = {m["name"] for m in spec.cell_metrics(MAN, c, "end_to_end")}
+        layers = spec.cell_metrics(MAN, c, "per_layer")
+        assert "setup_s" in ends and len(ends) >= 2 and layers, c
+        assert all(m["moves"] in ends for m in layers), c
+    for m in MAN["end_to_end"] + MAN["per_layer"]:
+        assert set(m.get("workloads", cells)) <= cells, m["name"]
+
+
+def test_a_metric_without_a_list_follows_what_it_moves():
+    man = {"end_to_end": [{"name": "rate"}, {"name": "mem"},
+                          {"name": "only_b", "workloads": ["b"]}],
+           "per_layer": [{"name": "free", "moves": "rate"},
+                         {"name": "free_b", "moves": "only_b"},
+                         {"name": "listed", "moves": "only_b", "workloads": ["a", "b"]}]}
+    assert [m["name"] for m in spec.cell_metrics(man, "a", "end_to_end")] == ["rate", "mem"]
+    assert [m["name"] for m in spec.cell_metrics(man, "a", "per_layer")] == ["free", "listed"]
+    assert [m["name"] for m in spec.cell_metrics(man, "b", "per_layer")] == [
+        "free", "free_b", "listed"]
+
+
+def test_the_loop_readers():
+    """The loop cells' rate and step time, and the twins that read as their
+    originals do."""
+    ms = [float(v) for v in range(1, 101)]
+    ctx = {"samples_per_s_per_gpu": 12.5, "step_ms": ms}
+    assert spec.metric_module("samples_per_s_per_gpu.loop").read(ctx) == 12.5
+    assert spec.metric_module("samples_per_s_per_gpu.loop").read(
+        {"samples_per_s_per_gpu": 0.0}) is None
+    assert spec.metric_module("step_ms_p90.loop").read(ctx) == pytest.approx(90.9)
+    assert spec.metric_module("step_ms_p90.loop").read({"step_ms": [3.0]}) is None
+    names = {m["name"] for m in MAN["per_layer"]}
+    twins = [n for n in names if n.endswith(".loop") and n[:-5] in names]
+    assert len(twins) == 4
+    trace_ctx = {"rows": rows((10, 30), (20, 40), (60, 70)), "window": (0.0, 100.0)}
+    assert spec.metric_module("device.idle_pct.loop").read(trace_ctx) == pytest.approx(60.0)
+    for n in twins:
+        assert (spec.metric_module(n).read.__code__.co_filename
+                == spec.metric_module(n[:-5]).read.__code__.co_filename)
 
 
 def test_a_cell_is_added_as_a_file(tmp_path):

@@ -45,8 +45,20 @@ cell.run_rank("os8-step-b4", 5, 0.1, True, 0, 1, time.time(), device="cpu",
 
 
 def test_reference_loads_nothing_of_the_program():
+    """Every family module, its reference forward and weights at a small
+    size, the reference's training step and the comparison."""
     names = loaded("""
-import benchmark.reference.arch, benchmark.reference.model, benchmark.reference.train
-import benchmark.traffic, benchmark.weights, benchmark.check
+import torch
+import benchmark.reference.train, benchmark.traffic, benchmark.check
+from benchmark import spec
+from benchmark.weights import make_weights
+for path in sorted((spec.HERE / "families").glob("*.py")):
+    spec.family(path.stem)
+for name in ("deeplabv3p-os16-deconv", "deeplabv3p-os8-interp"):
+    cfg = {**spec.config(name), "image_size": [32, 48]}
+    fam = spec.config_family(cfg)
+    w = make_weights(cfg, 3, "cpu")
+    fam.forward(cfg, w, torch.zeros(1, 32, 48, cfg["in_channels"]))
+    fam.layout(cfg), fam.units(cfg, 2), fam.faults(cfg)
 """)
     assert not names & (FORBIDDEN | {"deepcam_tpu_torch"}), sorted(names)

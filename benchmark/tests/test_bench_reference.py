@@ -1,5 +1,6 @@
 """The plain reference against the port, on the CPU at a small size, and the
-work the benchmark counts on it.  The test imports the port; the reference
+work the benchmark counts on it, through the DeepLabV3+ family
+(``families/deeplabv3p.py``).  The test imports the port; the reference
 does not."""
 
 from __future__ import annotations
@@ -15,13 +16,13 @@ import torch
 REPO = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(REPO))
 
+from benchmark import spec  # noqa: E402
 from benchmark.cell import conv_backward_flops, flops_per_sample  # noqa: E402
-from benchmark.reference import arch  # noqa: E402
-from benchmark.reference.model import Forward, forward  # noqa: E402
-from benchmark.reference.train import Lamb, weighted_ce  # noqa: E402
+from benchmark.reference.train import AdamW, Lamb, optimizer, weighted_ce  # noqa: E402
 from benchmark.weights import make_weights  # noqa: E402
 
 CONFIGS = ("deeplabv3p-os16-deconv", "deeplabv3p-os8-interp")
+FAMILY = spec.family("deeplabv3p")
 
 
 def config(name: str, size=None) -> dict:
@@ -32,12 +33,7 @@ def config(name: str, size=None) -> dict:
 
 
 def port_model(cfg: dict, weights: dict):
-    from deepcam_tpu_torch.models.deeplab import DeepLabv3plus
-
-    with torch.device("meta"):
-        model = DeepLabv3plus(cfg["n_classes"], cfg["output_stride"], decoder=cfg["decoder"],
-                              in_ch=cfg["in_channels"], dtype=torch.float32, device="meta")
-    model = model.to_empty(device="cpu")
+    model = FAMILY.build({**cfg, "compute_dtype": "float32"}, "cpu")
     model.load_state_dict(weights)
     return model
 
@@ -49,7 +45,7 @@ def test_names_and_shapes_are_the_ports(name):
     cfg = config(name, (32, 48))
     weights = make_weights(cfg, 7, "cpu")
     sd = port_model(cfg, weights).state_dict()
-    assert list(sd) == [n for n, _, _ in arch.param_specs(cfg)]
+    assert list(sd) == [n for n, _, _ in FAMILY.param_specs(cfg)]
     assert all(tuple(sd[n].shape) == tuple(weights[n].shape) for n in sd)
 
 
@@ -66,7 +62,7 @@ def test_train_forward_matches_the_port(name):
     with torch.no_grad():
         port = model(x)
         stats: dict = {}
-        ref = forward(cfg, weights, x, stats=stats)
+        ref = FAMILY.forward(cfg, weights, x, stats=stats)
     assert ((port - ref).norm() / ref.norm()).item() < 1e-3
     assert abs(weighted_ce(port, y).item() - weighted_ce(ref, y).item()) < 1e-4
     moved = {n: b for n, b in model.named_buffers() if n.endswith("running_mean")}
@@ -98,6 +94,33 @@ def test_lamb_matches_the_ports():
         assert torch.allclose(p.detach(), ref[str(i)], rtol=1e-6, atol=1e-7)
 
 
+def test_adamw_matches_torch():
+    """Three AdamW steps on the same gradients: the reference's loop and
+    ``torch.optim.AdamW`` (the port's, ``optax.adamw``'s math) agree to
+    fp32 rounding."""
+    g = torch.Generator().manual_seed(1)
+    shapes = [(16, 8, 3, 3), (16,), (4, 16, 1, 1)]
+    init = [torch.randn(s, generator=g) for s in shapes]
+    grads = [[torch.randn(s, generator=g) * 3 for s in shapes] for _ in range(3)]
+    port = [torch.nn.Parameter(t.clone()) for t in init]
+    opt = torch.optim.AdamW(port, lr=1e-3, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-2)
+    ref = {str(i): t.clone() for i, t in enumerate(init)}
+    adamw = optimizer({"name": "AdamW", "lr": 1e-3, "eps": 1e-8, "weight_decay": 1e-2}, ref)
+    assert isinstance(adamw, AdamW)
+    for step in grads:
+        for p, gr in zip(port, step):
+            p.grad = gr.clone()
+        opt.step()
+        adamw.step(ref, {str(i): gr for i, gr in enumerate(step)})
+    for i, p in enumerate(port):
+        assert torch.allclose(p.detach(), ref[str(i)], rtol=1e-6, atol=1e-7)
+
+
+def test_unknown_optimizer_raises():
+    with pytest.raises(ValueError, match="SGD"):
+        optimizer({"name": "SGD", "lr": 1e-3, "eps": 1e-8, "weight_decay": 0.0}, {})
+
+
 def hand_flops_middle_block(pixels: int) -> int:
     """Forward and backward of one 728-channel middle-flow block on
     ``pixels`` pixels: three units of a depthwise 3x3 (9 multiply-adds per
@@ -109,17 +132,17 @@ def hand_flops_middle_block(pixels: int) -> int:
 
 def test_flop_count_of_a_middle_block():
     cfg = config(CONFIGS[0])
-    block = [b for b in arch.blocks(16) if b.name == "block4"][0]
+    block = [b for b in FAMILY.arch.blocks(16) if b.name == "block4"][0]
     from torch.utils.flop_counter import FlopCounterMode
 
     with torch.device("meta"):
-        params = {n: torch.empty(s, requires_grad=True) for n, s, _ in arch.param_specs(cfg)
-                  if n.startswith("xception.block4.") and not arch.is_buffer(n)}
+        params = {n: torch.empty(s, requires_grad=True) for n, s, _ in FAMILY.param_specs(cfg)
+                  if n.startswith("xception.block4.") and not FAMILY.is_buffer(n)}
         x = torch.empty((1, 728, 48, 72), requires_grad=True)
         counter = FlopCounterMode(display=False, custom_mapping={
             torch.ops.aten.convolution_backward: conv_backward_flops})
         with counter:
-            Forward(cfg, params).block(block, x).sum().backward()
+            FAMILY.model.Forward(cfg, params).block(block, x).sum().backward()
     assert counter.get_total_flops() == hand_flops_middle_block(48 * 72)
 
 
@@ -137,7 +160,7 @@ def test_flops_per_sample():
 def test_sepconv_units(name, n_units, forms):
     """The stride-1 separable units of a training forward, in the forms the
     port launches per step (chip_smoke.py's counts)."""
-    units = arch.sepconv_units(config(name), 2)
+    units = FAMILY.units(config(name), 2)
     assert len(units) == n_units
     seen: dict = {}
     for *_, form in units:

@@ -2,9 +2,10 @@
 
 One normal draw covers every kaiming-initialised tensor and one uniform draw
 every tensor with PyTorch's default init; each tensor is a slice of its
-draw, scaled by its own fan-in (``reference/arch.py:param_specs``).  The
-same seed gives the same weights, which the program loads through
-``load_state_dict`` and the reference takes as they are.
+draw, scaled by its own fan-in (the ``param_specs`` of the configuration's
+family, ``families/<family>.py``).  The same seed gives the same weights,
+which the program loads through ``load_state_dict`` and the reference
+takes as they are.
 """
 
 from __future__ import annotations
@@ -14,13 +15,14 @@ from typing import Dict
 
 import torch
 
-from .reference import arch
+from . import spec
 from .seeds import sub_seed
 
 
 def make_weights(cfg: dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    """{name: fp32 tensor} for every tensor of ``arch.param_specs(cfg)``."""
-    specs = arch.param_specs(cfg)
+    """{name: fp32 tensor} for every tensor of the family's
+    ``param_specs(cfg)``."""
+    specs = spec.config_family(cfg).param_specs(cfg)
     gen = torch.Generator(device=device).manual_seed(sub_seed(seed, "weights"))
     sizes = {"normal": 0, "uniform": 0}
     for _, shape, init in specs:
