@@ -29,6 +29,11 @@ the JAX CLI.  ``--remat`` recomputes the forward inside the backward
 (``models/layers.py:rematerialized``) in whichever train step runs; the
 gradient histograms of ``--enable_wandb`` read that step's gradients.
 
+``--model`` chooses DeepLabV3+ (the default: output stride 16, the deconv
+decoder) or FC-DenseNet103 (``models/tiramisu.py``), which runs the same
+train and eval steps, DDP and checkpoints, and takes neither ``--spatial``
+above 1 nor ``--remat``.
+
 ``main(pargs)`` builds the HDF5 datasets and calls ``train_loop(pargs,
 train_set, validation_set)``, which takes any pair of ``CamDataset``s (for
 example ``MemoryCamDataset``).
@@ -142,6 +147,11 @@ def build_parser() -> ap.ArgumentParser:
                          "halo-strip path")
     AP.add_argument("--device", type=str, default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
+    AP.add_argument("--model", type=str, default="deeplabv3p",
+                    choices=["deeplabv3p", "fcdensenet103"],
+                    help="deeplabv3p: DeepLabV3+ at output stride 16 with the deconv "
+                         "decoder (the reference's); fcdensenet103: the 103-layer "
+                         "Tiramisu (models/tiramisu.py), without --spatial or --remat")
     return AP
 
 
@@ -150,6 +160,9 @@ def check_supported(pargs) -> None:
     refused = {
         "--checkpoint_format orbax (a TPU format)": pargs.checkpoint_format == "orbax",
         "--wireup_method jax (the TPU wireup)": pargs.wireup_method == "jax",
+        "--remat with --model fcdensenet103": pargs.model == "fcdensenet103" and pargs.remat,
+        "--spatial > 1 with --model fcdensenet103": (pargs.model == "fcdensenet103"
+                                                    and pargs.spatial > 1),
     }
     bad = [k for k, v in refused.items() if v]
     if bad:
@@ -299,6 +312,7 @@ def train_loop(pargs, train_set, validation_set) -> LoopResult:
     from ..core.mesh import device_for, get_rank, spatial_groups
     from ..data.pipeline import DataLoader, prefetch_to_device
     from ..models.deeplab import DeepLabv3plus
+    from ..models.tiramisu import FCDenseNet103
     from ..obs.mlperf_log import MLPerfLogger
     from ..obs.wandb_utils import WandbLogger
     from ..ops.classify import argmax_channels
@@ -366,8 +380,12 @@ def train_loop(pargs, train_set, validation_set) -> LoopResult:
         logger.log_event(key="opt_epsilon", value=pargs.adam_eps)
 
         dtype = compute_dtype(pargs.amp_opt_level)
-        model = DeepLabv3plus(n_classes=3, output_stride=16, in_ch=len(pargs.channels),
-                              dtype=dtype, device=device, seed=seed)
+        if pargs.model == "fcdensenet103":
+            model = FCDenseNet103(n_classes=3, in_ch=len(pargs.channels), dtype=dtype,
+                                  device=device, seed=seed)
+        else:
+            model = DeepLabv3plus(n_classes=3, output_stride=16, in_ch=len(pargs.channels),
+                                  dtype=dtype, device=device, seed=seed)
         pinned = device.type == "cuda"
         train_loader = DataLoader(
             train_set, pargs.local_batch_size, drop_last=True, pin_memory=pinned,

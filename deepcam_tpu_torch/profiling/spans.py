@@ -42,6 +42,8 @@ The spans and what they cover:
                     ``ops/bn_glue.py``: on the card the kernel wrapper
                     (checks, allocations, the ctypes launch), on the CPU
                     the plain version
+``dense.block``     each dense block's forward, ``models/tiramisu.py``
+``dense.transition`` each transition down's and up's forward
 
 This module imports only torch and the standard library, so that any
 module of the port can import it.

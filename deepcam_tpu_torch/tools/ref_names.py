@@ -74,7 +74,13 @@ def xception_names(x: torch.nn.Module) -> List[Tuple[str, str]]:
 
 def reference_names(model: torch.nn.Module) -> List[Tuple[str, str]]:
     """[(port state_dict key, reference key without ``module.``), ...] for
-    every tensor of the port's ``DeepLabv3plus``, in the reference's order."""
+    every tensor of the port's ``DeepLabv3plus``, in the reference's order.
+    ``FCDenseNet103`` has no reference checkpoint in this repository: its
+    checkpoints name its tensors as its ``state_dict`` does."""
+    from ..models.tiramisu import FCDenseNet103
+
+    if isinstance(model, FCDenseNet103):
+        return [(k, k) for k in model.state_dict()]
     if model.decoder != "deconv":
         raise NotImplementedError(
             f"reference_names: no reference checkpoint schema for the {model.decoder!r} "

@@ -78,7 +78,7 @@ def test_flag_surface_covers_reference():
     from deepcam_tpu.cli.train import build_parser as jax_parser
 
     jax_flags = {a.dest for a in jax_parser()._actions}
-    assert jax_flags <= ours and ours - jax_flags == {"device"}
+    assert jax_flags <= ours and ours - jax_flags == {"device", "model"}
     assert build_parser().parse_args([]).device == "cuda"
 
 
