@@ -41,7 +41,18 @@ otherwise.  Phases, each printing JSON lines:
    2 fp32 ulp), one launch each way, and per call the host µs of the
    kernel wrappers, the host µs forward and backward through autograd and
    the device µs and launches, beside the same of the PyTorch operations
-   the glue replaced.  Last, two host costs of a train step's launches:
+   the glue replaced.  Then train-mode BatchNorm over its own input
+   (``ops/bn_own.py``) at the Tiramisu's full-resolution shapes (C = 48,
+   112, 240 at 768x1152, batch 2) and its widest low-resolution ones (C =
+   656-1072 at 1/16 and 1/32 of the input), with ReLU: each channel's
+   Σx, Σx², Σg and Σg·x within 1e-5 of its Σ|·| against fp64, dx within
+   one bf16 rounding of fp64, the apply bit-equal to the composed bf16
+   operations, and per kernel entry its median device ms (L2 flushed)
+   against its byte bound (the bf16 passes it reads and writes at 3.35
+   TB/s), beside the composed operations' ms for the same step, and the
+   whole layer forward and backward through autograd beside the composed
+   layer; its launches per step are read in phases 5 and 7 (18 and 15 of
+   each entry).  Last, two host costs of a train step's launches:
    encoding the TMA maps, and the device guard of ``ops/build.py:launch``
    (entered only when another device is current; timed entered and not).
 4. units   — one full-resolution training step in which every one of the
@@ -606,6 +617,143 @@ def bn_glue_phase(bg):
     return rows
 
 
+# the Tiramisu's own-statistics BatchNorm inputs: full resolution at batch
+# 2 (the first dense block's narrowest and widest, the last up block's
+# widest), and the widest at 1/16 and 1/32 of the input
+BN_OWN_SHAPES = ((2, 48, 768, 1152), (2, 112, 768, 1152), (2, 240, 768, 1152),
+                 (2, 656, 48, 72), (2, 880, 24, 36), (2, 1072, 48, 72))
+# train-mode BatchNorm calls over their own input in a DeepLabV3+ train step,
+# by output stride (``ops/bn_own.py``: one launch of each entry per call)
+BN_OWN_CALLS = {16: 18, 8: 15}
+# bf16 passes over x's size each entry reads and writes (with ReLU)
+BN_OWN_PASSES = {"bn_own_stats": 1, "bn_own_apply": 2, "bn_own_grad_stats": 3, "bn_own_dx": 4}
+
+
+def composed_bn_own(x, weight, bias, rm, rv, relu=True, momentum=0.1, eps=1e-5):
+    """Train-mode BatchNorm over its own input as ``models/layers.py``
+    composes it on the CPU (and did on the card before ``ops/bn_own.py``):
+    the fp32 copy, its square, the two means, the glue, and the bf16
+    apply: the yardstick of its times."""
+    from deepcam_tpu_torch.ops.bn_glue import bn_glue
+
+    x32 = x.float()
+    m1, m2 = x32.mean(dim=(0, 2, 3)), (x32 * x32).mean(dim=(0, 2, 3))
+    n = x.shape[0] * x.shape[2] * x.shape[3]
+    a, b = bn_glue(m1, m2, weight, bias, rm, rv, div=1, count=n, momentum=momentum, eps=eps,
+                   update=True, dtype=x.dtype)
+    y = x * a[:, None, None] + b[:, None, None]
+    return torch.relu(y) if relu else y
+
+
+def check_fp64_sums(got, want, scale, where):
+    """Each channel's fp32 sum within 1e-5 of its Σ|·| of the fp64 sum."""
+    gap = ((got.double() - want).abs() / scale.clamp_min(1e-30)).max().item()
+    check(gap <= 1e-5, f"{where}: {gap} of Σ|·| from the fp64 sum")
+    return gap
+
+
+def bn_own_phase(bo):
+    """Each kernel entry of ``ops/bn_own.py`` at ``BN_OWN_SHAPES`` with
+    ReLU: held to fp64 (the four sums within 1e-5 of their Σ|·|, dx within
+    one bf16 rounding) and the apply to the composed bf16 operations bit
+    for bit, then timed against its byte bound and beside the composed
+    operations it replaced; and the layer through autograd, forward and
+    backward, beside the composed layer."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+    rows_out = []
+    for shape in BN_OWN_SHAPES:
+        n, c, h, w = shape
+        rows = n * h * w
+        x = (torch.randn(shape, generator=gen, device=dev) * 0.7 + 0.2).bfloat16().contiguous(
+            memory_format=torch.channels_last)
+        dy = torch.randn(shape, generator=gen, device=dev).bfloat16().contiguous(
+            memory_format=torch.channels_last)
+        weight = 1 + 0.2 * torch.randn(c, generator=gen, device=dev)
+        bias = 0.1 * torch.randn(c, generator=gen, device=dev)
+        rm, rv = torch.zeros(c, device=dev), torch.ones(c, device=dev)
+        p = bo.plan(dev, rows, c, True)
+        bo.reset_launches()
+        where = f"bn_own {shape}"
+        gaps = {}
+        sums = bo.stats(x, p)
+        x64 = x.double()
+        gaps["sum_x"] = check_fp64_sums(sums[0], x64.sum((0, 2, 3)), x64.abs().sum((0, 2, 3)),
+                                        f"{where} Σx")
+        sq = (x64 * x64).sum((0, 2, 3))
+        gaps["sum_x2"] = check_fp64_sums(sums[1], sq, sq, f"{where} Σx²")
+        del sq
+        mean = sums[0] / rows
+        inv = torch.rsqrt((sums[1] / rows - mean * mean).clamp_min(0) + 1e-5) * weight
+        a, b = inv.bfloat16(), (bias - mean * inv).bfloat16()
+        y = bo.apply(x, a, b, True, p)
+        check(torch.equal(y, torch.relu(x * a[:, None, None] + b[:, None, None])),
+              f"{where}: the apply differs from the composed operations")
+        g = bo.grad_stats(dy, y, x, True, p)
+        g64 = torch.where(y <= 0, 0.0, dy.double())
+        gaps["sum_g"] = check_fp64_sums(g[0], g64.sum((0, 2, 3)), g64.abs().sum((0, 2, 3)),
+                                        f"{where} Σg")
+        gx = g64 * x64
+        gaps["sum_gx"] = check_fp64_sums(g[1], gx.sum((0, 2, 3)), gx.abs().sum((0, 2, 3)),
+                                         f"{where} Σg·x")
+        del gx
+        d1, d2 = g[0] * -1e-6, g[1] * 1e-7
+        dx = bo.dx(dy, y, x, a, d1, d2, True, p)
+        terms = (g64 * a.double()[:, None, None], d1.double()[:, None, None],
+                 2 * x64 * d2.double()[:, None, None])
+        want = terms[0] + terms[1] + terms[2]
+        # one bf16 rounding of the result, and fp32's of the terms before it
+        limit = 2.0 ** -8 * want.abs() + 1e-6 * (terms[0].abs() + terms[1].abs()
+                                                 + terms[2].abs())
+        over = ((dx.double() - want).abs() / limit.clamp_min(1e-30)).max().item()
+        check(over <= 1, f"{where}: dx {over} x its limit from fp64")
+        gaps["dx_of_limit"] = over
+        del x64, g64, terms, want, limit, dx
+        torch.cuda.synchronize()
+        check(bo.LAUNCHES == dict.fromkeys(bo.LAUNCHES, 1), f"{where}: launches {bo.LAUNCHES}")
+
+        def composed_grad_stats():
+            gc = torch.ops.aten.threshold_backward(dy, y, 0)
+            return gc.sum((0, 2, 3)), (gc * x).sum((0, 2, 3))
+
+        def composed_dx():
+            gc = torch.ops.aten.threshold_backward(dy, y, 0)
+            o = (d2[:, None, None] * x.float()) * 2 + d1[:, None, None]
+            return gc * a[:, None, None] + o.bfloat16()
+
+        kernels = {
+            "bn_own_stats": (lambda: bo.stats(x, p), lambda: (
+                x.float().mean((0, 2, 3)), x.float().square().mean((0, 2, 3)))),
+            "bn_own_apply": (lambda: bo.apply(x, a, b, True, p),
+                             lambda: torch.relu(x * a[:, None, None] + b[:, None, None])),
+            "bn_own_grad_stats": (lambda: bo.grad_stats(dy, y, x, True, p),
+                                  composed_grad_stats),
+            "bn_own_dx": (lambda: bo.dx(dy, y, x, a, d1, d2, True, p), composed_dx),
+        }
+        row = {"shape": list(shape), "plan": list(p), "checks": gaps}
+        for name, (kernel, plain) in kernels.items():
+            ms = time_ms(kernel, 20, flush)
+            bound_ms = BN_OWN_PASSES[name] * x.numel() * 2 / PEAK_BYTES_PER_S * 1e3
+            row[name] = {"ms": ms, "bound_ms": bound_ms, "bound_share": bound_ms / ms,
+                         "plain_ms": time_ms(plain, 5, flush)}
+        xs = x.clone().requires_grad_()
+        ws, bs = weight.clone().requires_grad_(), bias.clone().requires_grad_()
+
+        def layer(fn):
+            return lambda: torch.autograd.grad(fn(xs, ws, bs, rm, rv), (xs, ws, bs), dy)
+
+        row["layer_ms"] = time_ms(layer(lambda *t: bo.bn_own(
+            *t, relu=True, momentum=0.1, eps=1e-5, update=True, dtype=torch.bfloat16)), 10,
+            flush)
+        row["composed_layer_ms"] = time_ms(layer(composed_bn_own), 5, flush)
+        emit({"phase": "bn_own", **row})
+        rows_out.append(row)
+        del x, dy, y, xs
+        torch.cuda.empty_cache()
+    return rows_out
+
+
 def rel_err(a, b):
     """max |a − b| over max |b|, in fp32 on a's device."""
     a, b = a.detach().float(), b.detach().float().to(a.device)
@@ -975,9 +1123,12 @@ def train_steps(fs, step_fn, state, x, y, timed):
     """1 warm-up and ``timed`` timed steps with the counters zeroed just
     before and read just after.  Returns the state, the measurements and the
     launch counts."""
+    from deepcam_tpu_torch.ops import bn_own as bo
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fs.reset_launches()
+    bo.reset_launches()
     losses = []
     for _ in range(WARMUP_STEPS):
         state, metrics = step_fn(state, x, y)
@@ -989,13 +1140,15 @@ def train_steps(fs, step_fn, state, x, y, timed):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches, forms = dict(fs.LAUNCHES), measured_forms(fs)
+    bn_own_launches = dict(bo.LAUNCHES)
     losses.append(float(metrics["loss"]))
     check(all(math.isfinite(v) for v in losses), f"non-finite loss: {losses}")
     result = {"steps": {"warmup": WARMUP_STEPS, "timed": timed},
               "ms_per_step": dt / timed * 1e3, "samples_per_s": x.shape[0] * timed / dt,
               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
               "loss_first": losses[0], "loss_last": losses[-1],
-              "iou_last": float(metrics["iou"]), "launches": launches, "forms": forms}
+              "iou_last": float(metrics["iou"]), "launches": launches, "forms": forms,
+              "bn_own_launches": bn_own_launches}
     return state, result
 
 
@@ -1276,6 +1429,9 @@ def os8_phase(fs, smi):
     state, train = train_steps(fs, step_fn, state, x, y, TIMED_STEPS)
     check_counts("os8", train["launches"], train["forms"], WARMUP_STEPS + TIMED_STEPS,
                  OS8_TRAIN_FORMS, OS8_TRAIN_FORMS)
+    own = BN_OWN_CALLS[8] * (WARMUP_STEPS + TIMED_STEPS)
+    check(train["bn_own_launches"] == dict.fromkeys(train["bn_own_launches"], own),
+          f"os8: bn_own launches {train['bn_own_launches']}, want {own} each")
 
     ev = eval_steps(fs, state, x, y, "os8 eval", OS8_EVAL_FORMS)
     del model, opt, state, x, y, sd
@@ -2764,6 +2920,7 @@ def main():
         from deepcam_tpu_torch.models.deeplab import DeepLabv3plus
         from deepcam_tpu_torch.models.xception import XceptionBlock
         from deepcam_tpu_torch.ops import bn_glue as bg
+        from deepcam_tpu_torch.ops import bn_own as bo
         from deepcam_tpu_torch.ops import build
         from deepcam_tpu_torch.ops import fused_sepconv as fs
         from deepcam_tpu_torch.train.losses import (
@@ -2798,6 +2955,7 @@ def main():
     rows, splits = kernel_phase(fs)
     probe = probe_phase(pw)
     bn_rows = bn_glue_phase(bg)
+    bn_own_rows = bn_own_phase(bo)
     # host cost of the kernels' TMA maps: one per forward, four per backward
     map_us = fs.map_encode_us(torch.empty(8 << 20, dtype=torch.uint8, device="cuda"))
     emit({"phase": "tensor_maps", "encode_us_per_map": map_us,
@@ -2838,6 +2996,9 @@ def main():
     steps = WARMUP_STEPS + TIMED_STEPS
     check_counts("slice", slice_default["launches"], slice_default["forms"], steps,
                  TRAIN_FORMS, TRAIN_FORMS)
+    own = BN_OWN_CALLS[16] * steps
+    check(slice_default["bn_own_launches"] == dict.fromkeys(bo.LAUNCHES, own),
+          f"slice: bn_own launches {slice_default['bn_own_launches']}, want {own} each")
     launches = slice_default["launches"]
     changed = {k: not torch.equal(v, dict(model.named_parameters())[k].detach())
                for k, v in watched.items()}
@@ -2985,6 +3146,15 @@ def main():
                     "source": "deepcam_tpu_torch/ops/csrc/bn_glue.cu",
                     "replaces": "none (XLA fuses the glue on the TPU)",
                     "bound_by": "launch latency", "widths": bn_rows})
+    kernels.append({"name": "bn_own", "route": "cuda",
+                    "source": "deepcam_tpu_torch/ops/csrc/bn_own.cu",
+                    "replaces": "none (XLA fuses train-mode BatchNorm on the TPU)",
+                    "bound_by": "bytes", "shapes": bn_own_rows,
+                    "launches_per_step": {
+                        "slice": {k: v / steps for k, v in
+                                  slice_default["bn_own_launches"].items()},
+                        "os8": {k: v / (WARMUP_STEPS + TIMED_STEPS) for k, v in
+                                os8["train"]["bn_own_launches"].items()}}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -30,6 +30,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from ..ops import bn_own
 from ..ops.bn_glue import bn_glue
 from ..ops.fused_sepconv import (
     fused_sepconv,
@@ -334,6 +335,11 @@ class BatchNorm2d(nn.Module):
       the moments to ``(a, b)`` and the running statistics is one autograd
       function, ``ops/bn_glue.py``: one kernel launch forward and one
       backward on the card.
+    * Train mode over its own input on the card (no ``stats``, no
+      ``fold``, no statistics group): the statistics, the glue, the apply
+      and ReLU are one autograd function, ``ops/bn_own.py``, over kernels
+      that keep no fp32 copy of x (bf16 only: it raises on another type).
+      On the CPU the layer composes the operations below.
     * Eval mode: the running statistics, through PyTorch operations: the
       glue's kernels serve train mode, whose every step pays its launches.
     * The apply is ``x*a + b`` in ``dtype`` with a = γ/σ and b = β − μ·a
@@ -354,6 +360,11 @@ class BatchNorm2d(nn.Module):
 
     def forward(self, x: torch.Tensor, relu: bool = False, fold: bool = False,
                 stats=None):
+        if (self.training and stats is None and not fold and spatial.stats_group() is None
+                and bn_own.serves(x)):
+            return bn_own.bn_own(x, self.weight, self.bias, self.running_mean,
+                                 self.running_var, relu=relu, momentum=self.momentum,
+                                 eps=self.eps, update=not recomputing(), dtype=self.dtype)
         if self.training:
             n = x.shape[0] * x.shape[2] * x.shape[3]
             if stats is not None:  # sums over the n values of each channel

@@ -185,17 +185,36 @@ class _Call:
         self.momentum, self.eps, self.update, self.dtype = momentum, eps, update, dtype
 
 
+def glue_fwd(m1, m2, weight, bias, call):
+    """``(a, b, saved)``: the kernel for tensors on the card, the plain
+    version on the CPU, its host time added to the span ``bn.fwd``."""
+    args = (m1, m2, weight, bias, call.running_mean, call.running_var, call.div, call.count,
+            call.momentum, call.eps, call.update, call.dtype)
+    t0 = time.perf_counter_ns()
+    out = bn_glue_fwd(*args) if _on_card(m1) else bn_glue_fwd_plain(*args)
+    spans.add("bn.fwd", time.perf_counter_ns() - t0)
+    return out
+
+
+def glue_bwd(ga, gb, saved, weight, div: int):
+    """``(d weight, d bias, d m1, d m2)`` as ``glue_fwd`` dispatches, into
+    the span ``bn.bwd``."""
+    t0 = time.perf_counter_ns()
+    if _on_card(saved):
+        out = bn_glue_bwd(ga.contiguous(), gb.contiguous(), saved, weight, div)
+    else:
+        out = bn_glue_bwd_plain(ga, gb, saved, weight, div)
+    spans.add("bn.bwd", time.perf_counter_ns() - t0)
+    return out
+
+
 class _BnGlue(torch.autograd.Function):
     """Outputs (a, b); the backward receives their cotangents and returns
     those of (m1, m2, weight, bias)."""
 
     @staticmethod
     def forward(ctx, m1, m2, weight, bias, call):
-        args = (m1, m2, weight, bias, call.running_mean, call.running_var, call.div, call.count,
-                call.momentum, call.eps, call.update, call.dtype)
-        t0 = time.perf_counter_ns()
-        a, b, saved = bn_glue_fwd(*args) if _on_card(m1) else bn_glue_fwd_plain(*args)
-        spans.add("bn.fwd", time.perf_counter_ns() - t0)
+        a, b, saved = glue_fwd(m1, m2, weight, bias, call)
         ctx.save_for_backward(saved, weight)
         ctx.div = call.div
         return a, b
@@ -203,13 +222,7 @@ class _BnGlue(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ga, gb):
         saved, weight = ctx.saved_tensors
-        t0 = time.perf_counter_ns()
-        if _on_card(saved):
-            gw, gbias, gm1, gm2 = bn_glue_bwd(ga.contiguous(), gb.contiguous(), saved, weight,
-                                              ctx.div)
-        else:
-            gw, gbias, gm1, gm2 = bn_glue_bwd_plain(ga, gb, saved, weight, ctx.div)
-        spans.add("bn.bwd", time.perf_counter_ns() - t0)
+        gw, gbias, gm1, gm2 = glue_bwd(ga, gb, saved, weight, ctx.div)
         return gm1, gm2, gw, gbias, None
 
 

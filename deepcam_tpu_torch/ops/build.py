@@ -20,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
-SOURCES = ("sepconv_fwd", "sepconv_bwd", "row_windows", "bn_glue")
+SOURCES = ("sepconv_fwd", "sepconv_bwd", "row_windows", "bn_glue", "bn_own")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -37,11 +37,16 @@ The spans and what they cover:
                     wrapper (checks, plan, allocations, tensor-map
                     encoding, the ctypes launch), on the CPU the plain
                     version
-``bn.fwd``          (``add``) train-mode BatchNorm's glue call from its
-``bn.bwd``          autograd function, forward and backward,
-                    ``ops/bn_glue.py``: on the card the kernel wrapper
+``bn.fwd``          (``add``) train-mode BatchNorm's glue call, forward
+``bn.bwd``          and backward, ``ops/bn_glue.py`` (from its autograd
+                    function or inside ``ops/bn_own.py``'s): on the card
+                    the kernel wrapper
                     (checks, allocations, the ctypes launch), on the CPU
                     the plain version
+``bn.own.fwd``      (``add``) train-mode BatchNorm over its own input on
+``bn.own.bwd``      the card, ``ops/bn_own.py``: its autograd function's
+                    forward and backward apart from the glue call inside
+                    them (the kernel launches, allocations and plan)
 ``dense.block``     each dense block's forward, ``models/tiramisu.py``
 ``dense.transition`` each transition down's and up's forward
 

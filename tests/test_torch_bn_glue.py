@@ -23,6 +23,7 @@ import torch
 from deepcam_tpu_torch.models import layers
 from deepcam_tpu_torch.models.deeplab import DeepLabv3plus
 from deepcam_tpu_torch.ops import bn_glue as bg
+from deepcam_tpu_torch.ops import bn_own
 from deepcam_tpu_torch.parallel import spatial
 from deepcam_tpu_torch.profiling import spans
 from deepcam_tpu_torch.train import losses as tl
@@ -331,10 +332,13 @@ def test_kernels_match_plain_on_card(c, dtype):
 @pytest.mark.parametrize("c", CHANNELS)
 @pytest.mark.parametrize("fold", [True, False], ids=["fold", "apply"])
 @pytest.mark.parametrize("with_stats", [True, False], ids=["kernel_stats", "reduced"])
-def test_kernels_match_the_composed_path_on_card(c, fold, with_stats):
-    """The layer through the kernels against the composed CUDA operations,
-    bf16 compute: outputs and running statistics bit for bit, the
-    gradients within 2 ulp."""
+def test_kernels_match_the_composed_path_on_card(monkeypatch, c, fold, with_stats):
+    """The layer through the glue's kernels against the composed CUDA
+    operations, bf16 compute: outputs and running statistics bit for bit,
+    the gradients within 2 ulp.  Over its own input the layer takes the
+    composed statistics and apply around the glue here, as it did before
+    ``ops/bn_own.py`` (whose layer ``tests/test_torch_bn_own.py`` holds)."""
+    monkeypatch.setattr(bn_own, "serves", lambda x: False)
     case = _case(c, c, torch.bfloat16, device=_card())
     want, got = _both(case, fold, with_stats)[0]
     for k in want:
@@ -350,8 +354,12 @@ def test_train_step_through_the_kernels_on_card(monkeypatch, stride, decoder):
     """One bf16 train step of each configuration (batch 2 at 128 x 192):
     the loss and the running statistics bit for bit against the composed
     step from the same weights, and one launch and one span each way per
-    train-mode BatchNorm call."""
+    train-mode BatchNorm call.  The BatchNorms over their own input take
+    the composed operations around the glue here, as they did before
+    ``ops/bn_own.py`` (``tests/test_torch_bn_own.py`` holds a step through
+    it to the composed step)."""
     dev = _card()
+    monkeypatch.setattr(bn_own, "serves", lambda x: False)
     gen = torch.Generator(device=dev).manual_seed(stride)
     batch = (torch.rand(2, 128, 192, 16, generator=gen, device=dev).bfloat16(),
              torch.randint(0, 3, (2, 128, 192), generator=gen, device=dev))

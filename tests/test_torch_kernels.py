@@ -14,6 +14,7 @@ import torch
 
 from deepcam_tpu_torch.analysis import probe_element_window as pw
 from deepcam_tpu_torch.ops import bn_glue as bg
+from deepcam_tpu_torch.ops import bn_own as bo
 from deepcam_tpu_torch.ops import fused_sepconv as fs
 
 
@@ -413,7 +414,9 @@ def test_launches_run_on_the_tensors_device(monkeypatch):
         build.launch("k", lambda *args: 700, dev)
     for fn, name in ((fs.sepconv_fwd, "sepconv_fwd"), (fs.sepconv_bwd, "sepconv_bwd"),
                      (pw.row_windows_kernel, "row_windows"), (bg.bn_glue_fwd, "bn_glue_fwd"),
-                     (bg.bn_glue_bwd, "bn_glue_bwd")):
+                     (bg.bn_glue_bwd, "bn_glue_bwd"), (bo.stats, "bn_own_stats"),
+                     (bo.apply, "bn_own_apply"), (bo.grad_stats, "bn_own_grad_stats"),
+                     (bo.dx, "bn_own_dx")):
         src = inspect.getsource(fn)
         assert f'launch("{name}", ' in src and "cuda_stream" not in src, name
 
